@@ -135,7 +135,7 @@ class NeRFPredictor:
                    self.net_width, self.out_channel, self.do_skip,
                    dtype=dtype)
 
-    def init_params(self, generator=None, device='cpu', dtype=torch.float32):
+    def init_params(self, generator=None, device='cuda', dtype=torch.float32):
         """Fresh he-uniform parameters drawn from `generator` (a CPU
         generator: the draw happens on the host, so a seed gives the same
         weights on every device)."""
@@ -145,7 +145,7 @@ class NeRFPredictor:
                  if self.learn_injection else None)
         return NeRFParams(mlp, t_inj).to(device)
 
-    def params_from_jax(self, np_params, device='cpu', dtype=torch.float32):
+    def params_from_jax(self, np_params, device='cuda', dtype=torch.float32):
         """NeRFParams from the JAX package's pytree
         {'dense_i': {'kernel' (in, out), 'bias' (out,)}, ['t_injection']},
         as numpy arrays: weight = kernel.T. Built on the host, then moved

@@ -20,24 +20,44 @@
 // layer; gradients come back in the same padded layout followed by the
 // biases.
 //
-// What bounds them on this card: the matmul chain, ~109 kFLOP per column
-// forward and ~3x that backward. Device-memory traffic is small by
-// design: activations never leave shared memory, and a column reads 5
-// floats and writes 1 (plus feat floats of stash). So every activation of
-// a 64-column tile stays in shared memory and the products run on the
-// tensor cores (WMMA m16n16k8 TF32, one 16-row weight tile per warp,
-// fragments straight from the L2-resident weights and from shared
-// memory). f32 mode splits each operand into TF32 hi + lo parts and sums
-// lo*hi + hi*lo + hi*hi ("3xTF32", error ~2^-21 relative per product);
-// in bf16 mode every operand is already a bf16 value, exact in TF32, so
-// one TF32 product is exact and only the f32 accumulation rounds, as on
-// the TPU's MXU. Heads, prologue and epilogues run on the FMA pipes. The
-// backward keeps every hidden activation of its tile (4 x 128 rows) plus
-// the cotangents, ~200 KB of shared memory, so it runs one 256-thread
-// block per SM, and re-reads and re-writes its gradient partial (221 KB,
-// L2-resident) once per tile. With 8 warps per SM its products issue far
-// below the tensor-core rate (fragment loads, TF32 conversions and the
-// per-step f32 adds wait on each other): the backward is latency-bound.
+// What bounds them on this card: the matmul chain. Device-memory traffic
+// is small by design: activations never leave shared memory, and a
+// column reads 5 floats and writes 1 (plus feat floats of stash).
+//
+// Forward: ~109 kFLOP per column. Every activation of a 64-column tile
+// stays in shared memory and the products run on the tensor cores (WMMA
+// m16n16k8 TF32, one 16-row weight tile per warp, fragments straight
+// from the L2-resident weights and from shared memory).
+//
+// Backward: ~323 kFLOP per column (recompute 109k, weight gradients
+// 109k, products back through the weights 104k; 4x128, 21 features).
+// At the training step's 410,112 columns that is 132 GFLOP, 397 GFLOP of
+// TF32 in f32 mode (3 products each): 0.80 ms at 495 TFLOP/s, against
+// ~90 MB of device-memory traffic (0.03 ms). So it is compute-bound, and
+// the design serves the tensor cores:
+//   * every product is mma.sync m16n8k8 TF32 on register fragments whose
+//     layout the PTX ISA fixes, so operands are handled per element;
+//   * a warp computes a unit of 2 x 2 output tiles (32 x 16), so each A
+//     fragment serves two B fragments and the reverse;
+//   * each operand element is split into TF32 hi/lo once, when it is
+//     loaded, and reused by every MMA of its unit; the next k-step's
+//     elements are loaded before this step's MMAs;
+//   * the k order inside a k-step is permuted where that turns a lane's
+//     two weights into one 8-byte load; the shared-memory row stride
+//     (4 mod 32 words) keeps every fragment load free of bank conflicts;
+//   * d_pre_i overwrites h_i in place, so the products back through the
+//     weights write d_h without waiting for the weight gradients;
+//   * the SIMT rest runs one warp per row with shuffle sums (bias and
+//     head gradients) and a block reduction (the frame-time cotangent).
+// It keeps every hidden activation of its tile (4 x 128 rows) plus the
+// cotangents, ~200 KB of shared memory, and re-reads and re-writes its
+// gradient partial (221 KB, L2-resident) once per tile.
+//
+// f32 mode splits each operand into TF32 hi + lo parts and sums lo*hi +
+// hi*lo + hi*hi ("3xTF32", error ~2^-21 relative per product); in bf16
+// mode every operand is already a bf16 value, exact in TF32, so one TF32
+// product is exact and only the f32 accumulation rounds, as on the TPU's
+// MXU. Heads, prologue and epilogues run on the FMA pipes.
 //
 // Determinism: the TPU kernel accumulated parameter gradients across a
 // sequential grid into revisited output blocks. GPU blocks run in
@@ -52,6 +72,8 @@
 // the wrapper; activations, features and cotangents entering a product,
 // rounded here) are bfloat16 values and the products accumulate in f32;
 // the warp, the trig and all other sums stay f32.
+#include <cstdint>
+
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -65,16 +87,11 @@ constexpr int LD = BN + 4;        // shared-memory row stride (WMMA: x4)
 constexpr int NTHREADS = 256;
 constexpr int NWARPS = NTHREADS / 32;
 constexpr int MAX_LAYERS = 16;
-constexpr int MAX_BACK_TILES = 5; // 16x16 tiles per warp of W^T d_pre
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 8,
                              wmma::precision::tf32, wmma::row_major>;
-using FragAt = wmma::fragment<wmma::matrix_a, 16, 16, 8,
-                              wmma::precision::tf32, wmma::col_major>;
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 8,
                              wmma::precision::tf32, wmma::row_major>;
-using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 8,
-                              wmma::precision::tf32, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 8, float>;
 
 __device__ __forceinline__ float round_bf16(float x) {
@@ -287,7 +304,341 @@ fused_render_fwd_kernel(const float* __restrict__ t_eff,
   }
 }
 
-__global__ void __launch_bounds__(NTHREADS)
+// ---------------------------------------------------------------------------
+// backward: register-fragment mma.sync products
+// ---------------------------------------------------------------------------
+// Block shape of the backward; the defaults are the shipped build, the
+// macros let a timing script build the other routes from this source.
+#ifndef BWD_THREADS_DEF
+#define BWD_THREADS_DEF 256
+#endif
+#ifndef BWD_BN_DEF
+#define BWD_BN_DEF 64
+#endif
+#ifndef BWD_BLOCKS_DEF
+#define BWD_BLOCKS_DEF 1
+#endif
+constexpr int BWD_THREADS = BWD_THREADS_DEF;
+constexpr int BWD_WARPS = BWD_THREADS / 32;
+constexpr int BBN = BWD_BN_DEF;         // columns per backward tile
+constexpr int BLD = BBN + 4;            // row stride, 4 mod 32 words: the
+                                        // fragment loads below are free of
+                                        // bank conflicts
+constexpr int BWD_BLOCKS = BWD_BLOCKS_DEF;  // resident blocks per SM
+static_assert(BN % BBN == 0 && BBN % 32 == 0, "BBN divides the tile");
+
+// a warp's unit of output: MT x NT tiles of m16 x n8
+constexpr int MT = 2;
+constexpr int NT = 2;
+
+__device__ __forceinline__ uint32_t tf32_bits(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// One operand element as the MMAs take it, split once when loaded: with
+// SPLIT (f32 mode) hi = x rounded to TF32 and lo = the rest rounded to
+// TF32; without, x is a bf16 value, which TF32 holds exactly.
+template <bool SPLIT>
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  if (SPLIT) {
+    hi = tf32_bits(x);
+    lo = tf32_bits(x - __uint_as_float(hi));
+  } else {
+    hi = __float_as_uint(x);
+    lo = 0u;
+  }
+}
+
+// d = a * b + c, one m16n8k8 TF32 MMA. Fragment layouts (PTX ISA,
+// mma.m16n8k8 .tf32), lane = 4 g + q: a = A(g, q), A(g+8, q), A(g, q+4),
+// A(g+8, q+4); b = B(q, g), B(q+4, g); c, d = C(g, 2q), C(g, 2q+1),
+// C(g+8, 2q), C(g+8, 2q+1).
+__device__ __forceinline__ void mma_tf32(float d[4], const uint32_t a[4],
+                                         const uint32_t b[2],
+                                         const float c[4]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+
+struct OpA {
+  uint32_t hi[4], lo[4];
+};
+struct OpB {
+  uint32_t hi[2], lo[2];
+};
+
+// acc += a * b for one k-step: 3xTF32 (small terms first) with SPLIT,
+// else one exact product. The tensor cores round their f32 sums toward
+// zero, so the step sums into fresh registers that are added to acc in
+// IEEE f32: the truncation stays at a few ulps of one step.
+template <bool SPLIT>
+__device__ __forceinline__ void mma_step(float acc[4], const OpA& a,
+                                         const OpB& b) {
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+  if (SPLIT) {
+    mma_tf32(s, a.lo, b.hi, s);
+    mma_tf32(s, a.hi, b.lo, s);
+  }
+  mma_tf32(s, a.hi, b.hi, s);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) acc[j] += s[j];
+}
+
+// acc[m][n] += sum over k-steps ks of A(m, ks) B(n, ks) for one unit.
+// lda(m, ks, a) loads the lane's four A elements of m-tile m at k-step
+// ks, ldb(n, ks, b) its two B elements. Each element is split once and
+// feeds all MT x NT tiles; the next k-step's raw elements are loaded
+// before this step's MMAs are issued.
+template <bool SPLIT, typename LA, typename LB>
+__device__ __forceinline__ void unit_product(float acc[MT][NT][4],
+                                             int ksteps, LA lda, LB ldb) {
+  float ra[MT][4], rb[NT][2];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) lda(m, 0, ra[m]);
+#pragma unroll
+  for (int n = 0; n < NT; ++n) ldb(n, 0, rb[n]);
+  for (int ks = 0; ks < ksteps; ++ks) {
+    OpA a[MT];
+    OpB b[NT];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        split_tf32<SPLIT>(ra[m][j], a[m].hi[j], a[m].lo[j]);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        split_tf32<SPLIT>(rb[n][j], b[n].hi[j], b[n].lo[j]);
+    if (ks + 1 < ksteps) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m) lda(m, ks + 1, ra[m]);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) ldb(n, ks + 1, rb[n]);
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int n = 0; n < NT; ++n) mma_step<SPLIT>(acc[m][n], a[m], b[n]);
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float s) {
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  return s;
+}
+
+// Rows at the backward's stride: the first `na` from `a`, the rest from
+// `b` (the skip concatenation [h, F]); na is a multiple of 16.
+struct TileRows {
+  const float* a;
+  int na;
+  const float* b;
+  __device__ __forceinline__ const float* row(int r) const {
+    return r < na ? a + r * BLD : b + (r - na) * BLD;
+  }
+};
+
+__device__ __forceinline__ void lane_coords(int& warp, int& g, int& q) {
+  const int lane = threadIdx.x % 32;
+  warp = threadIdx.x / 32;
+  g = lane / 4;
+  q = lane % 4;
+}
+
+// out (M rows x BBN) = rnd(relu(W . X + b)) with W (M x Kp) row-major in
+// device memory and X (Kp rows, shared). k-step ks covers k = 8 ks + 2q
+// (fragment column q) and 8 ks + 2q + 1 (column q + 4), so a lane's two
+// weights of a row are one 8-byte load.
+template <bool SPLIT>
+__device__ __forceinline__ void recompute_layer(const float* __restrict__ Wg,
+                                                int Kp, int M,
+                                                const TileRows& X,
+                                                const float* __restrict__ b,
+                                                float* out, bool bf16) {
+  int warp, g, q;
+  lane_coords(warp, g, q);
+  constexpr int nu_n = BBN / (8 * NT);
+  const int n_units = (M + 16 * MT - 1) / (16 * MT) * nu_n;
+  for (int u = warp; u < n_units; u += BWD_WARPS) {
+    const int m0 = u / nu_n * 16 * MT, c0 = u % nu_n * 8 * NT;
+    float acc[MT][NT][4] = {};
+    unit_product<SPLIT>(
+        acc, Kp / 8,
+        [&](int m, int ks, float* a) {
+          const int r = m0 + 16 * m + g;
+          if (r < M) {
+            const float* wr = Wg + (size_t)r * Kp + 8 * ks + 2 * q;
+            float2 x0 = __ldg(reinterpret_cast<const float2*>(wr));
+            float2 x8 = __ldg(reinterpret_cast<const float2*>(wr + 8 * Kp));
+            a[0] = x0.x; a[1] = x8.x; a[2] = x0.y; a[3] = x8.y;
+          } else {
+            a[0] = a[1] = a[2] = a[3] = 0.f;
+          }
+        },
+        [&](int n, int ks, float* bb) {
+          const int k = 8 * ks + 2 * q, c = c0 + 8 * n + g;
+          bb[0] = X.row(k)[c];
+          bb[1] = X.row(k + 1)[c];
+        });
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const int r = m0 + 16 * m + g;
+      if (r >= M) continue;
+      const float b0 = b[r], b8 = b[r + 8];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int c = c0 + 8 * n + 2 * q;
+        const float* v = acc[m][n];
+        *reinterpret_cast<float2*>(out + r * BLD + c) =
+            make_float2(rnd(fmaxf(v[0] + b0, 0.f), bf16),
+                        rnd(fmaxf(v[1] + b0, 0.f), bf16));
+        *reinterpret_cast<float2*>(out + (r + 8) * BLD + c) =
+            make_float2(rnd(fmaxf(v[2] + b8, 0.f), bf16),
+                        rnd(fmaxf(v[3] + b8, 0.f), bf16));
+      }
+    }
+  }
+}
+
+// dW (M x Kp, row-major in this block's partial at pw) += d_pre (M rows x
+// BBN, shared) . X^T (X: Kp rows, shared). The partial's old values are
+// loaded before the products and added after them, so their latency
+// overlaps the MMAs.
+template <bool SPLIT>
+__device__ __forceinline__ void weight_grad(float* __restrict__ pw, int Kp,
+                                            int M, const float* dpre,
+                                            const TileRows& X) {
+  int warp, g, q;
+  lane_coords(warp, g, q);
+  const int nu_n = Kp / (8 * NT);
+  const int n_units = (M + 16 * MT - 1) / (16 * MT) * nu_n;
+  for (int u = warp; u < n_units; u += BWD_WARPS) {
+    const int m0 = u / nu_n * 16 * MT, k0 = u % nu_n * 8 * NT;
+    float2 old[MT][NT][2];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const int r = m0 + 16 * m + g;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float* p = pw + (size_t)r * Kp + k0 + 8 * n + 2 * q;
+        old[m][n][0] = r < M ? *reinterpret_cast<const float2*>(p)
+                             : make_float2(0.f, 0.f);
+        old[m][n][1] = r < M ? *reinterpret_cast<const float2*>(p + 8 * Kp)
+                             : make_float2(0.f, 0.f);
+      }
+    }
+    float acc[MT][NT][4] = {};
+    unit_product<SPLIT>(
+        acc, BBN / 8,
+        [&](int m, int ks, float* a) {
+          const int r = m0 + 16 * m + g, c = 8 * ks + q;
+          if (r < M) {
+            const float* d0 = dpre + r * BLD + c;
+            a[0] = d0[0]; a[1] = d0[8 * BLD]; a[2] = d0[4];
+            a[3] = d0[8 * BLD + 4];
+          } else {
+            a[0] = a[1] = a[2] = a[3] = 0.f;
+          }
+        },
+        [&](int n, int ks, float* bb) {
+          const float* xr = X.row(k0 + 8 * n + g) + 8 * ks + q;
+          bb[0] = xr[0];
+          bb[1] = xr[4];
+        });
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const int r = m0 + 16 * m + g;
+      if (r >= M) continue;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        float* p = pw + (size_t)r * Kp + k0 + 8 * n + 2 * q;
+        const float* v = acc[m][n];
+        *reinterpret_cast<float2*>(p) =
+            make_float2(old[m][n][0].x + v[0], old[m][n][0].y + v[1]);
+        *reinterpret_cast<float2*>(p + 8 * Kp) =
+            make_float2(old[m][n][1].x + v[2], old[m][n][1].y + v[3]);
+      }
+    }
+  }
+}
+
+// dst (Kp rows x BBN, shared) = W^T . d_pre, or dst += it with `add`:
+// W (M x Kp) row-major in device memory read transposed, A(k, o) =
+// W[o][k]; d_pre (M rows, shared). k-step ks covers o = 8 ks + 2q and
+// 8 ks + 2q + 1, as in recompute_layer.
+template <bool SPLIT>
+__device__ __forceinline__ void back_product(const float* __restrict__ Wg,
+                                             int Kp, int M,
+                                             const float* dpre, float* dst,
+                                             bool add) {
+  int warp, g, q;
+  lane_coords(warp, g, q);
+  constexpr int nu_n = BBN / (8 * NT);
+  const int n_units = (Kp + 16 * MT - 1) / (16 * MT) * nu_n;
+  for (int u = warp; u < n_units; u += BWD_WARPS) {
+    const int m0 = u / nu_n * 16 * MT, c0 = u % nu_n * 8 * NT;
+    float acc[MT][NT][4] = {};
+    unit_product<SPLIT>(
+        acc, M / 8,
+        [&](int m, int ks, float* a) {
+          const int r = m0 + 16 * m + g;
+          if (r < Kp) {
+            const float* wo = Wg + (size_t)(8 * ks + 2 * q) * Kp + r;
+            a[0] = __ldg(wo);
+            a[1] = __ldg(wo + 8);
+            a[2] = __ldg(wo + Kp);
+            a[3] = __ldg(wo + Kp + 8);
+          } else {
+            a[0] = a[1] = a[2] = a[3] = 0.f;
+          }
+        },
+        [&](int n, int ks, float* bb) {
+          const float* d0 = dpre + (8 * ks + 2 * q) * BLD + c0 + 8 * n + g;
+          bb[0] = d0[0];
+          bb[1] = d0[BLD];
+        });
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const int r = m0 + 16 * m + g;
+      if (r >= Kp) continue;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int c = c0 + 8 * n + 2 * q;
+        float2* d0 = reinterpret_cast<float2*>(dst + r * BLD + c);
+        float2* d8 = reinterpret_cast<float2*>(dst + (r + 8) * BLD + c);
+        const float* v = acc[m][n];
+        float2 o0 = make_float2(v[0], v[1]), o8 = make_float2(v[2], v[3]);
+        if (add) {
+          o0.x += d0->x; o0.y += d0->y;
+          o8.x += d8->x; o8.y += d8->y;
+        }
+        *d0 = o0;
+        *d8 = o8;
+      }
+    }
+  }
+}
+
+// input rows of layer i: F for layer 0, else h_{i-1} (+ F after a skip)
+__device__ __forceinline__ TileRows layer_input(const Net& net, int i,
+                                                const float* acts,
+                                                const float* Fs) {
+  if (i == 0) return TileRows{Fs, net.feat_pad, nullptr};
+  return TileRows{acts + (size_t)(i - 1) * net.width * BLD, net.width,
+                  skip_after(net, i - 1) ? Fs : nullptr};
+}
+
+template <bool BF16>
+__global__ void __launch_bounds__(BWD_THREADS, BWD_BLOCKS)
 fused_render_bwd_kernel(const float* __restrict__ g_em,
                         const float* __restrict__ em,
                         const float* __restrict__ fstash,
@@ -297,19 +648,18 @@ fused_render_bwd_kernel(const float* __restrict__ g_em,
                         float* __restrict__ partial, int stride,
                         float* __restrict__ dt_partial, int nt, int N,
                         int deg, int want_dt, Net net) {
+  constexpr bool SPLIT = !BF16;
   extern __shared__ __align__(128) float smem[];
   const int W = net.width, Fd = net.feat, FP = net.feat_pad, D = net.depth;
-  const bool bf16 = net.bf16;
-  const bool split = !bf16;
-  float* acts = smem;                    // D x (W rows)
-  float* Fs = acts + D * W * LD;         // FP rows
-  float* dh = Fs + FP * LD;              // (W + FP) rows; rows [0, W)
-                                         // hold d_pre once masked
-  float* dF = dh + (W + FP) * LD;        // FP rows
-  float* vec = dF + FP * LD;             // BN
+  float* acts = smem;                    // D x (W rows): h_i, overwritten
+                                         // by d_pre_i on the way back
+  float* Fs = acts + D * W * BLD;        // FP rows
+  float* dh = Fs + FP * BLD;             // (W + FP) rows
+  float* dF = dh + (W + FP) * BLD;       // FP rows
+  float* vec = dF + FP * BLD;            // BBN
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int n_stiles = N / BN;
+  const int lane = tid % 32, warp = tid / 32;
+  const int n_stiles = N / BBN;
   const int n_tiles = n_stiles * nt;
   const size_t cols = (size_t)nt * N;
   float* part = partial + (size_t)blockIdx.x * stride;
@@ -317,177 +667,120 @@ fused_render_bwd_kernel(const float* __restrict__ g_em,
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int t = tile / n_stiles;
-    const int n0 = (tile % n_stiles) * BN;
+    const int n0 = (tile % n_stiles) * BBN;
     const size_t col0 = (size_t)t * N + n0;
 
     // stashed features (already in the compute dtype, padding rows 0)
     // and the head cotangent d_out = g * em * (1 - em)
-    for (int idx = tid; idx < FP * BN; idx += NTHREADS) {
-      int r = idx / BN, c = idx % BN;
-      Fs[r * LD + c] = r < Fd ? fstash[r * cols + col0 + c] : 0.f;
-      dF[r * LD + c] = 0.f;
+    for (int idx = tid; idx < FP * BBN; idx += BWD_THREADS) {
+      int r = idx / BBN, c = idx % BBN;
+      Fs[r * BLD + c] = r < Fd ? fstash[r * cols + col0 + c] : 0.f;
+      dF[r * BLD + c] = 0.f;
     }
-    if (tid < BN) {
+    if (tid < BBN) {
       float e = em[col0 + tid];
-      vec[tid] = rnd(g_em[col0 + tid] * e * (1.f - e), bf16);
+      vec[tid] = rnd(g_em[col0 + tid] * e * (1.f - e), BF16);
     }
     __syncthreads();
 
     // recompute the hidden activations
     for (int i = 0; i < D; ++i) {
-      Rows in = (i == 0) ? Rows{Fs, FP, nullptr}
-                         : Rows{acts + (i - 1) * W * LD, W,
-                                skip_after(net, i - 1) ? Fs : nullptr};
-      float* out = acts + i * W * LD;
-      FragC acc[4];
-      layer_product(w + net.w_off[i], net.in_pad[i], W, in, split, acc);
-      store_product(out, W, acc);
-      __syncthreads();
-      bias_relu(out, W, bias + net.b_off[i], bf16);
+      recompute_layer<SPLIT>(w + net.w_off[i], net.in_pad[i], W,
+                             layer_input(net, i, acts, Fs),
+                             bias + net.b_off[i], acts + i * W * BLD, BF16);
       __syncthreads();
     }
 
-    // head: dW_D, db_D, and d_h = W_D^T d_out
+    // head: dW_D and db_D as warp sums over the columns, d_h = W_D^T d_out
     {
       const int Kp = net.in_pad[D];
-      Rows in{acts + (D - 1) * W * LD, W,
-              skip_after(net, D - 1) ? Fs : nullptr};
+      const TileRows in = layer_input(net, D, acts, Fs);
       const float* wh = w + net.w_off[D];   // (1, Kp), padding zero
-      for (int k = tid; k < net.in_dim[D]; k += NTHREADS) {
+      for (int k = warp; k < net.in_dim[D]; k += BWD_WARPS) {
         const float* r = in.row(k);
         float s = 0.f;
-        for (int c = 0; c < BN; ++c) s = fmaf(vec[c], r[c], s);
-        part[net.w_off[D] + k] += s;
+        for (int c = lane; c < BBN; c += 32) s = fmaf(vec[c], r[c], s);
+        s = warp_sum(s);
+        if (lane == 0) part[net.w_off[D] + k] += s;
       }
-      if (tid == 0) {
+      if (warp == BWD_WARPS - 1) {
         float s = 0.f;
-        for (int c = 0; c < BN; ++c) s += vec[c];
-        dbp[net.b_off[D]] += s;
+        for (int c = lane; c < BBN; c += 32) s += vec[c];
+        s = warp_sum(s);
+        if (lane == 0) dbp[net.b_off[D]] += s;
       }
-      for (int idx = tid; idx < Kp * BN; idx += NTHREADS) {
-        int k = idx / BN, c = idx % BN;
-        dh[k * LD + c] = wh[k] * vec[c];
+      for (int idx = tid; idx < Kp * BBN; idx += BWD_THREADS) {
+        int k = idx / BBN, c = idx % BBN;
+        dh[k * BLD + c] = wh[k] * vec[c];
       }
       __syncthreads();
     }
 
     for (int i = D - 1; i >= 0; --i) {
-      // split the skip cotangent (rows [W, W+FP) of d_h belong to F), and
-      // d_pre = relu'(h_i) * d_h, rounded, in place in rows [0, W)
+      // one warp per row: d_pre = rnd(relu'(h_i) * d_h) into h_i's rows,
+      // its row sum (db_i) as a warp sum, and the skip cotangent (rows
+      // [W, W + FP) of d_h belong to F) onto dF
       const bool split_f = skip_after(net, i) && want_dt;
-      const float* h = acts + i * W * LD;
-      for (int idx = tid; idx < W * BN; idx += NTHREADS) {
-        int o = idx / BN, c = idx % BN;
-        if (split_f && o < FP) dF[o * LD + c] += dh[(W + o) * LD + c];
-        dh[o * LD + c] = h[o * LD + c] > 0.f ? rnd(dh[o * LD + c], bf16)
-                                             : 0.f;
-      }
-      // feature rows past the width (narrow MLPs): rows disjoint from
-      // those the loop above reads and writes
-      if (split_f && FP > W)
-        for (int idx = tid; idx < (FP - W) * BN; idx += NTHREADS) {
-          int o = W + idx / BN, c = idx % BN;
-          dF[o * LD + c] += dh[(W + o) * LD + c];
+      float* h = acts + i * W * BLD;
+      const int rows = split_f && FP > W ? FP : W;
+      for (int o = warp; o < rows; o += BWD_WARPS) {
+        float s = 0.f;
+        for (int c = lane; c < BBN; c += 32) {
+          if (split_f && o < FP) dF[o * BLD + c] += dh[(W + o) * BLD + c];
+          if (o < W) {
+            const float d = h[o * BLD + c] > 0.f
+                                ? rnd(dh[o * BLD + c], BF16) : 0.f;
+            h[o * BLD + c] = d;
+            s += d;
+          }
         }
+        if (o < W) {
+          s = warp_sum(s);
+          if (lane == 0) dbp[net.b_off[i] + o] += s;
+        }
+      }
       __syncthreads();
 
+      // dW_i += d_pre . in^T into this block's partial, and d_h (Kp rows)
+      // = W_i^T d_pre; layer 0 adds onto dF (the skip branch) when
+      // want_dt. Neither reads what the other writes.
       const int Kp = net.in_pad[i];
-      Rows in = (i == 0) ? Rows{Fs, FP, nullptr}
-                         : Rows{acts + (i - 1) * W * LD, W,
-                                skip_after(net, i - 1) ? Fs : nullptr};
-      // dW_i (W x Kp) += d_pre (W x BN) . in^T (BN x Kp), into this
-      // block's partial: warp w owns rows [16w, 16w + 16)
-      if (warp * 16 < W) {
-        float* pw = part + net.w_off[i] + (size_t)warp * 16 * Kp;
-        for (int k0 = 0; k0 < Kp; k0 += 16) {
-          FragC acc;
-          wmma::load_matrix_sync(acc, pw + k0, Kp, wmma::mem_row_major);
-          const float* xr = in.row(k0);
-          for (int c0 = 0; c0 < BN; c0 += 8) {
-            FragA a;
-            FragBt b;
-            wmma::load_matrix_sync(a, dh + warp * 16 * LD + c0, LD);
-            wmma::load_matrix_sync(b, xr + c0, LD);
-            mma_f32(acc, a, b, split);
-          }
-          wmma::store_matrix_sync(pw + k0, acc, Kp, wmma::mem_row_major);
-        }
-      }
-      for (int o = tid; o < W; o += NTHREADS) {
-        float s = 0.f;
-        for (int c = 0; c < BN; ++c) s += dh[o * LD + c];
-        dbp[net.b_off[i] + o] += s;
-      }
-      // d_h (Kp rows) = W_i^T d_pre, in 16x16 tiles dealt round-robin to
-      // the warps; A(m = k, kk = o) = W_i[o][k] is W_i read column-major.
-      // Layer 0 adds onto dF (the skip branch) when want_dt.
-      if (i > 0 || want_dt) {
-        float* dst = i > 0 ? dh : dF;
-        const int n_tiles_h = (Kp / 16) * 4;
-        // warp w owns column tile w % 4 and row tiles w / 4 + 2j, so
-        // each k-step loads one d_pre fragment and up to MAX_BACK_TILES
-        // independent weight fragments
-        FragC acc[MAX_BACK_TILES];
-        const int nc = warp % 4;
-#pragma unroll
-        for (int j = 0; j < MAX_BACK_TILES; ++j) {
-          const int tt = warp + NWARPS * j;
-          if (tt >= n_tiles_h) continue;
-          if (i > 0)
-            wmma::fill_fragment(acc[j], 0.f);
-          else
-            wmma::load_matrix_sync(acc[j], dF + (tt / 4) * 16 * LD + nc * 16,
-                                   LD, wmma::mem_row_major);
-        }
-        for (int k0 = 0; k0 < W; k0 += 8) {
-          FragB b;
-          wmma::load_matrix_sync(b, dh + k0 * LD + nc * 16, LD);
-          const float* wk = w + net.w_off[i] + (size_t)k0 * Kp;
-#pragma unroll
-          for (int j = 0; j < MAX_BACK_TILES; ++j) {
-            const int tt = warp + NWARPS * j;
-            if (tt >= n_tiles_h) continue;
-            FragAt a;
-            wmma::load_matrix_sync(a, wk + (tt / 4) * 16, Kp);
-            mma_f32(acc[j], a, b, split);
-          }
-        }
-        __syncthreads();                // all reads of d_pre done
-#pragma unroll
-        for (int j = 0; j < MAX_BACK_TILES; ++j) {
-          const int tt = warp + NWARPS * j;
-          if (tt < n_tiles_h)
-            wmma::store_matrix_sync(dst + (tt / 4) * 16 * LD + nc * 16,
-                                    acc[j], LD, wmma::mem_row_major);
-        }
-      }
+      weight_grad<SPLIT>(part + net.w_off[i], Kp, W, h,
+                         layer_input(net, i, acts, Fs));
+      if (i > 0 || want_dt)
+        back_product<SPLIT>(w + net.w_off[i], Kp, W, h, i > 0 ? dh : dF,
+                            i == 0);
       __syncthreads();
     }
 
-    // frame-time cotangent: posenc chain, then d theta = dw . (wy, -wx, 0)
+    // frame-time cotangent: posenc chain, then d theta = dw . (wy, -wx, 0),
+    // summed over the tile as a block reduction
     if (want_dt) {
-      if (tid < BN) {
+      float v = 0.f;
+      if (tid < BBN) {
         const int c = tid;
         float dw[3];
-        for (int j = 0; j < 3; ++j) dw[j] = dF[j * LD + c];
+        for (int j = 0; j < 3; ++j) dw[j] = dF[j * BLD + c];
         float p2 = 1.f;
         for (int i = 0; i < deg; ++i) {
           for (int j = 0; j < 3; ++j) {
-            float s = Fs[(3 + 3 * i + j) * LD + c];
-            float co = Fs[(3 + 3 * deg + 3 * i + j) * LD + c];
-            float ds = dF[(3 + 3 * i + j) * LD + c];
-            float dc = dF[(3 + 3 * deg + 3 * i + j) * LD + c];
+            float s = Fs[(3 + 3 * i + j) * BLD + c];
+            float co = Fs[(3 + 3 * deg + 3 * i + j) * BLD + c];
+            float ds = dF[(3 + 3 * i + j) * BLD + c];
+            float dc = dF[(3 + 3 * deg + 3 * i + j) * BLD + c];
             dw[j] = dw[j] + p2 * (ds * co - dc * s);
           }
           p2 *= 2.f;
         }
-        float dtheta = dw[0] * Fs[1 * LD + c] - dw[1] * Fs[0 * LD + c];
-        vec[c] = dtheta * omega[n0 + c];
+        float dtheta = dw[0] * Fs[1 * BLD + c] - dw[1] * Fs[0 * BLD + c];
+        v = dtheta * omega[n0 + c];
       }
+      v = warp_sum(v);
+      if (lane == 0) vec[warp] = v;     // d_out is no longer read
       __syncthreads();
       if (tid == 0) {
         float s = 0.f;
-        for (int c = 0; c < BN; ++c) s += vec[c];
+        for (int k = 0; k < BWD_WARPS; ++k) s += vec[k];
         dt_partial[(size_t)blockIdx.x * nt + t] += s;
       }
     }
@@ -537,12 +830,11 @@ Net make_net(int depth, int width, int feat, int do_skip, int bf16) {
   return net;
 }
 
-// 16-row weight tiles, one per warp; at most MAX_BACK_TILES tiles of
-// W^T d_pre per warp
-bool supported(int depth, int width, int feat) {
+// the forward's 16-row weight tiles, one per warp; the backward is
+// bounded by its shared memory only (fused_render_bwd_smem)
+bool supported(int depth, int width) {
   return depth >= 1 && depth + 1 <= MAX_LAYERS && width % 16 == 0 &&
-         width <= 16 * NWARPS &&
-         ((width + pad16(feat)) / 16) * 4 <= MAX_BACK_TILES * NWARPS;
+         width <= 16 * NWARPS;
 }
 
 }  // namespace
@@ -557,10 +849,14 @@ int fused_render_n_params(int depth, int width, int feat, int do_skip) {
   return net.n_weights + net.b_off[depth] + 1;
 }
 
+int fused_render_bwd_tile() { return BBN; }
+
+int fused_render_bwd_blocks_per_sm() { return BWD_BLOCKS; }
+
 size_t fused_render_bwd_smem(int depth, int width, int feat) {
   size_t fp = pad16(feat);
-  return sizeof(float) * ((size_t)depth * width * LD + fp * LD +
-                          (width + fp) * LD + fp * LD + BN);
+  return sizeof(float) * (((size_t)depth * width + fp + width + fp + fp) *
+                              BLD + BBN);
 }
 
 int fused_render_fwd(const float* t_eff, const float* coords,
@@ -569,7 +865,7 @@ int fused_render_fwd(const float* t_eff, const float* coords,
                      float* fstash, int nt, int N, int depth, int width,
                      int feat, int do_skip, int deg, float inv_scale,
                      int bf16, void* stream) {
-  if (!supported(depth, width, feat) || N % BN != 0)
+  if (!supported(depth, width) || N % BN != 0)
     return (int)cudaErrorInvalidValue;
   Net net = make_net(depth, width, feat, do_skip, bf16);
   size_t smem = sizeof(float) * ((size_t)(width + net.feat_pad) * LD + BN);
@@ -585,7 +881,8 @@ int fused_render_fwd(const float* t_eff, const float* coords,
 }
 
 // partial: (grid, stride) floats, zeroed, stride >= n_params and a
-// multiple of 8 (32-byte aligned rows for the WMMA loads and stores).
+// multiple of 8 (aligned rows for the 8-byte loads and stores); grid up
+// to fused_render_bwd_blocks_per_sm() blocks per SM.
 int fused_render_bwd(const float* g_em, const float* em, const float* fstash,
                      const float* omega, const float* w, const float* bias,
                      float* partial, int stride, float* dt_partial,
@@ -594,16 +891,17 @@ int fused_render_bwd(const float* g_em, const float* em, const float* fstash,
                      int want_dt, int grid, void* stream) {
   Net net = make_net(depth, width, feat, do_skip, bf16);
   int n_params = net.n_weights + net.b_off[depth] + 1;
-  if (!supported(depth, width, feat) || N % BN != 0 || grid < 1 ||
+  if (!supported(depth, width) || N % BN != 0 || grid < 1 ||
       stride % 8 != 0 || stride < n_params)
     return (int)cudaErrorInvalidValue;
   size_t smem = fused_render_bwd_smem(depth, width, feat);
+  auto kernel = bf16 ? fused_render_bwd_kernel<true>
+                     : fused_render_bwd_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_render_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  fused_render_bwd_kernel<<<grid, NTHREADS, smem, s>>>(
+  kernel<<<grid, BWD_THREADS, smem, s>>>(
       g_em, em, fstash, omega, w, bias, partial, stride, dt_partial, nt, N,
       deg, want_dt, net);
   err = cudaGetLastError();

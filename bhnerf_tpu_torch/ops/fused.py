@@ -37,10 +37,9 @@ from bhnerf_tpu_torch.ops import _build
 # sample-count multiple the kernels take (one tile of columns per block)
 TILE_N = 64
 # the kernels take MLP widths that are multiples of 16 up to MAX_WIDTH
-# (one 16-row weight tile per warp), with width + padded features up to
-# MAX_ROWS (tiles of the backward's W^T d_pre per warp)
+# (the forward's one 16-row weight tile per warp); the backward is bounded
+# by its shared memory, which render_bwd checks against the card
 MAX_WIDTH = 128
-MAX_ROWS = 160
 
 
 def pack_params(params):
@@ -185,6 +184,8 @@ def _lib():
     lib.fused_render_bwd_smem.restype = ctypes.c_size_t
     lib.fused_render_n_params.argtypes = [_I] * 4
     lib.fused_render_n_params.restype = _I
+    lib.fused_render_bwd_tile.restype = _I
+    lib.fused_render_bwd_blocks_per_sm.restype = _I
     lib.fused_render_tile.restype = _I
     if lib.fused_render_tile() != TILE_N:
         raise RuntimeError('fused_render.cu tile differs from TILE_N')
@@ -195,7 +196,7 @@ def _pad16(k):
     return -(-k // 16) * 16
 
 
-def _check_cuda_inputs(tensors, cfg, feat, n):
+def _check_cuda_inputs(tensors, cfg, n):
     width = cfg[1]
     dev = tensors[0].device
     for x in tensors:
@@ -206,11 +207,9 @@ def _check_cuda_inputs(tensors, cfg, feat, n):
     if n % TILE_N:
         raise ValueError(f'sample count {n} must be a multiple of TILE_N '
                          f'({TILE_N}); pad the inputs')
-    if width % 16 or width > MAX_WIDTH or width + _pad16(feat) > MAX_ROWS:
+    if width % 16 or width > MAX_WIDTH:
         raise ValueError(f'the fused CUDA kernels take net_width a multiple '
-                         f'of 16 up to {MAX_WIDTH} with width + padded '
-                         f'features <= {MAX_ROWS}; got width {width}, '
-                         f'{feat} features')
+                         f'of 16 up to {MAX_WIDTH}; got width {width}')
 
 
 def _pack_cuda(weights, biases, cfg, feat, bf16):
@@ -250,7 +249,7 @@ def render_fwd(t_eff, coords, omega, tg, smask, weights, biases, cfg, scale,
     nt, n = t_eff.shape[0], coords.shape[1]
     feat = 3 * (1 + 2 * deg)
     bf16 = compute_dtype == 'bfloat16'
-    _check_cuda_inputs([t_eff, coords, omega, tg, smask], cfg, feat, n)
+    _check_cuda_inputs([t_eff, coords, omega, tg, smask], cfg, n)
     w, b, _ = _pack_cuda(weights, biases, cfg, feat, bf16)
     em = torch.empty((nt, n), dtype=torch.float32, device=coords.device)
     f_store = (torch.empty((feat, nt * n), dtype=torch.float32,
@@ -273,9 +272,10 @@ def render_bwd(g_em, em, f_store, omega, weights, biases, cfg, deg,
     """Backward kernel (CUDA tensors) or its plain version (CPU tensors).
     Returns ([dW_i (out, in)], [db_i (out,)], d_t (nt, 1)).
 
-    On the card the parameter gradients come from a persistent grid of one
-    block per SM, each summing its tiles into a private partial, and a
-    fixed-order sum of the partials: deterministic from run to run."""
+    On the card the parameter gradients come from a persistent grid of
+    as many blocks as the card holds at once, each summing its tiles into
+    a private partial, and a fixed-order sum of the partials:
+    deterministic from run to run."""
     if g_em.device.type == 'cpu':
         return render_bwd_plain(g_em, em, f_store, omega, weights, biases,
                                 cfg, deg, compute_dtype, want_dt)
@@ -286,7 +286,7 @@ def render_bwd(g_em, em, f_store, omega, weights, biases, cfg, deg,
     feat = f_store.shape[0]
     bf16 = compute_dtype == 'bfloat16'
     g_em = g_em.contiguous()
-    _check_cuda_inputs([g_em, em, f_store, omega], cfg, feat, n)
+    _check_cuda_inputs([g_em, em, f_store, omega], cfg, n)
     lib = _lib()
     smem = lib.fused_render_bwd_smem(depth, width, feat)
     props = torch.cuda.get_device_properties(g_em.device)
@@ -297,7 +297,9 @@ def render_bwd(g_em, em, f_store, omega, weights, biases, cfg, deg,
                          f'card allows {limit}')
     w, b, n_params = _pack_cuda(weights, biases, cfg, feat, bf16)
     stride = -(-n_params // 8) * 8      # 32-byte aligned partial rows
-    grid = min(props.multi_processor_count, nt * (n // TILE_N))
+    grid = min(props.multi_processor_count
+               * lib.fused_render_bwd_blocks_per_sm(),
+               nt * (n // lib.fused_render_bwd_tile()))
     dev = g_em.device
     partial = torch.zeros((grid, stride), dtype=torch.float32, device=dev)
     dt_partial = torch.zeros((grid, nt), dtype=torch.float32, device=dev)

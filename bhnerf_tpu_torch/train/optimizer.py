@@ -23,7 +23,7 @@ from bhnerf_tpu_torch.train import step as step_lib
 class Optimizer:
     """Gradient-descent loop (reference optimization.py:68-143)."""
 
-    def __init__(self, hparams, predictor, raytracing_args, device='cpu'):
+    def __init__(self, hparams, predictor, raytracing_args, device='cuda'):
         self.step = 0
         self.init_step = 0
         self.num_iters = hparams['num_iters']
@@ -95,7 +95,7 @@ class TrainStep:
 
     @classmethod
     def image(cls, t_frames, target, predictor, sigma=1.0, offset=0.0,
-              scale=1.0, dtype='full', fused=False, device='cpu'):
+              scale=1.0, dtype='full', fused=False, device='cuda'):
         """Image-plane training step (reference optimization.py:189-217).
         fused=True routes the render through the fused CUDA kernels."""
         target = np.asarray(target)
@@ -112,7 +112,7 @@ class TemporalBatchedArgs:
     """Frame-indexed args resident on one device
     (reference optimization.py:274-302)."""
 
-    def __init__(self, t_frames, args=(), device='cpu'):
+    def __init__(self, t_frames, args=(), device='cuda'):
         self.t_frames = t_frames
         args = list(args) if isinstance(args, (list, tuple)) else [args]
         self.num_frames = len(t_frames)

@@ -57,7 +57,7 @@ class RayTracingArgs:
 
 
 def raytracing_args(geos, Omega, t_injection, t_start_obs, J=1.0,
-                    M=consts.sgra_mass, device='cpu', dtype=torch.float32):
+                    M=consts.sgra_mass, device='cuda', dtype=torch.float32):
     """Freeze geodesics into tensors on `device`
     (reference network.py:850-894). t_start_obs: units.Quantity or float
     hours. J: a scalar intensity scale (polarized Stokes factors are not

@@ -38,6 +38,10 @@ BATCH = 6               # frames per step
 FOV = 16.0
 STEPS = 20
 REPEATS = 20            # launches per timing
+# published dense peaks of one H100 SXM (NVIDIA's data sheet): TF32 tensor
+# cores and HBM3
+TF32_FLOPS = 495e12
+HBM_BYTES_PER_S = 3.35e12
 
 
 def log(msg):
@@ -64,6 +68,44 @@ def cuda_ms(fn, repeats=REPEATS):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / repeats
+
+
+def mlp_dims(cfg, feat):
+    """(in, out) of every layer of the MLP, head last, with the skip
+    concatenation after layer depth // 2 (models/fields.py)."""
+    from bhnerf_tpu_torch.models.fields import skip_after
+    depth, width, do_skip = cfg
+    dims, d_in = [], feat
+    for i in range(depth + 1):
+        d_out = width if i < depth else 1
+        dims.append((d_in, d_out))
+        d_in = width + (feat if skip_after(i, depth, do_skip) else 0)
+    return dims
+
+
+def bound(kind, cfg, feat, nt, n, n_params, compute_dtype, want_dt=False):
+    """(bound_ms, bound_by, tera-ops): the least time the card could take
+    for this call. Operations: 2 per multiply-add of the products, TF32
+    on the tensor cores, three products each in f32 mode (3xTF32), one
+    in bf16 mode; forward = the layer products, backward = recompute +
+    weight gradients + products back through the weights (layer 0's only
+    with want_dt). Bytes: each input read once and each output written
+    once (forward: per-sample rows, frame times, parameters, emission;
+    backward: g_em, emission, stashed features, omega, parameters,
+    gradients)."""
+    cols = nt * n
+    macs = [i * o for i, o in mlp_dims(cfg, feat)]
+    if kind == 'fwd':
+        flop = 2 * cols * sum(macs)
+        nbytes = 4 * (6 * n + nt + n_params + cols)
+    else:
+        back = sum(macs[1:]) + (macs[0] if want_dt else 0)
+        flop = 2 * cols * (2 * sum(macs) + back)
+        nbytes = 4 * ((2 + feat) * cols + n + 2 * n_params + 2 * nt)
+    ops = flop * (3 if compute_dtype == 'float32' else 1)
+    t_ops, t_bytes = ops / TF32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            'operations' if t_ops >= t_bytes else 'bytes', ops / 1e12)
 
 
 def host_precompute(device):
@@ -139,8 +181,13 @@ def kernel_checks(predictor, crt, t_frames, device):
                                                           'float32'))
     fwd_stash_ms = cuda_ms(lambda: fused.render_fwd(*common, 'float32',
                                                     stash=True))
+    n_params = sum(w.numel() + b.numel() for w, b in zip(weights, biases))
+    fwd_bound = bound('fwd', cfg, f_p.shape[0], BATCH, n, n_params,
+                      'float32')
     log(f'fwd f32: kernel {fwd_ms:.3f} ms (with stash {fwd_stash_ms:.3f} '
-        f'ms), plain {fwd_plain_ms:.3f} ms')
+        f'ms), plain {fwd_plain_ms:.3f} ms; bound {fwd_bound[0]:.3f} ms '
+        f'({fwd_bound[1]}: {fwd_bound[2]:.1f} T TF32 ops), kernel at '
+        f'{100 * fwd_bound[0] / fwd_ms:.1f}% of it')
 
     target = torch.as_tensor(rng.random(em_p.shape), dtype=torch.float32,
                              device=device)
@@ -181,9 +228,12 @@ def kernel_checks(predictor, crt, t_frames, device):
         p_ms = cuda_ms(lambda: fused.render_bwd_plain(
             g_em, em_p, f_p, omega, weights, biases, cfg, deg, 'float32',
             want_dt))
+        b_ms, b_by, b_tops = bound('bwd', cfg, f_p.shape[0], *g_em.shape,
+                                   n_params, 'float32', want_dt)
         log(f'{line}; bitwise repeatable; kernel {k_ms:.3f} ms, plain '
-            f'{p_ms:.3f} ms')
-        bwd[want_dt] = (err, k_ms, p_ms)
+            f'{p_ms:.3f} ms; bound {b_ms:.3f} ms ({b_by}: {b_tops:.1f} '
+            f'T TF32 ops), kernel at {100 * b_ms / k_ms:.1f}% of it')
+        bwd[want_dt] = (err, k_ms, p_ms, b_ms, b_by)
 
     # bf16 operands against the f32 plain version (test_fused.py:83-114)
     em_b, f_b = fused.render_fwd(*common, 'bfloat16', stash=True)
@@ -211,16 +261,25 @@ def kernel_checks(predictor, crt, t_frames, device):
     if loss_rel > 0.02 or cos < 0.99:
         raise RuntimeError('bf16 kernels stray from the f32 reference')
 
+    # library_ms: no single PyTorch call computes either fused function
+    # (warp + posenc + a 5-layer MLP with a skip, and its backward)
     return [
         {'name': 'fused_render_fwd', 'route': 'cuda',
          'source': 'bhnerf_tpu_torch/ops/csrc/fused_render.cu',
          'replaces': 'bhnerf_tpu/ops/fused.py:169', 'launches': 0,
-         'max_abs_err': fwd_err, 'ms': fwd_ms, 'plain_ms': fwd_plain_ms},
+         'launches_per_step': 0, 'max_abs_err': fwd_err, 'ms': fwd_ms,
+         'plain_ms': fwd_plain_ms, 'bound_ms': fwd_bound[0],
+         'bound_by': fwd_bound[1], 'library_ms': None,
+         'bf16_ms': b_ms, 'bf16_plain_ms': bp_ms},
         {'name': 'fused_render_bwd', 'route': 'cuda',
          'source': 'bhnerf_tpu_torch/ops/csrc/fused_render.cu',
          'replaces': 'bhnerf_tpu/ops/fused.py:198', 'launches': 0,
+         'launches_per_step': 0,
          'max_abs_err': max(bwd[False][0], bwd[True][0]),
-         'ms': bwd[False][1], 'plain_ms': bwd[False][2]},
+         'ms': bwd[False][1], 'plain_ms': bwd[False][2],
+         'bound_ms': bwd[False][3], 'bound_by': bwd[False][4],
+         'library_ms': None, 'want_dt_ms': bwd[True][1],
+         'bf16_ms': bb_ms, 'bf16_plain_ms': bbp_ms},
     ]
 
 
@@ -307,6 +366,7 @@ def main():
     launches = train_main_path(predictor, crt, t_frames, device)
     for entry, count in zip(kernels, launches):
         entry['launches'] = count
+        entry['launches_per_step'] = count / STEPS
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -23,17 +23,27 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('compute_dtype,width', [
-    ('float32', 128), ('bfloat16', 128),
+@pytest.mark.parametrize('compute_dtype,width,depth,nt,n_tiles', [
+    ('float32', 128, 4, 3, 4), ('bfloat16', 128, 4, 3, 4),
     # narrower than the 32 padded feature rows of the skip input
-    ('float32', 16)])
-def test_kernels_match_plain_on_card(cuda_device, compute_dtype, width):
+    ('float32', 16, 4, 3, 4),
+    # other skip positions: after layer 1 of 2, after layer 4 of 8
+    ('float32', 128, 2, 3, 4), ('float32', 64, 8, 3, 4),
+    ('bfloat16', 64, 8, 3, 4),
+    # width 64, and 48, which leaves half of a warp's last 32-row unit
+    # of output empty
+    ('float32', 64, 4, 3, 4), ('float32', 48, 4, 3, 4),
+    # fewer tiles than SMs: one frame, one tile
+    ('float32', 128, 4, 1, 1)])
+def test_kernels_match_plain_on_card(cuda_device, compute_dtype, width,
+                                     depth, nt, n_tiles):
     """Forward and backward kernels against their plain versions on the
     same card inputs: emission atol 2e-6 / rtol 1e-4 (f32), gradients
-    atol 5e-5 after normalising by the max, d_t rtol 2e-3."""
+    atol 5e-5 after normalising by the max, d_t rtol 2e-3; the backward
+    bitwise equal on a repeated call."""
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(0)
-    nt, n, depth, deg = 3, 4 * fused.TILE_N, 4, 3
+    n, deg = n_tiles * fused.TILE_N, 3
     pred = NeRFPredictor(scale=8.0, net_depth=depth, net_width=width,
                          posenc_deg=deg, compute_dtype=compute_dtype)
     params = pred.init_params(generator=torch.Generator().manual_seed(0),
@@ -75,3 +85,8 @@ def test_kernels_match_plain_on_card(cuda_device, compute_dtype, width):
             np.testing.assert_allclose(gk[2].cpu().numpy(),
                                        gp[2].cpu().numpy(), rtol=2e-3,
                                        atol=1e-6)
+        again = fused.render_bwd(g, em_p, f_p, omega, weights, biases, cfg,
+                                 deg, compute_dtype, want_dt)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(gk[0] + gk[1] + [gk[2]], again[0] + again[1]
+                       + [again[2]]))

@@ -6,6 +6,9 @@ do. Inputs are made once with numpy and handed to both packages; the JAX
 parameters are copied into the port with params_from_jax. Tests that need
 the card are in test_torch_cuda.py.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -38,7 +41,7 @@ def to_torch_geos(geos):
 
 def torch_params(predictor, jparams):
     np_params = jax.tree_util.tree_map(np.asarray, jparams)
-    return predictor.params_from_jax(np_params)
+    return predictor.params_from_jax(np_params, device='cpu')
 
 
 def jax_grads_as_torch(g):
@@ -63,7 +66,7 @@ def setup():
                              j_units.Quantity(0.0, 'hr'))
     tgeos = to_torch_geos(geos)
     rt = raytracing_args(tgeos, tgeos.keplerian_omega(), t_inj,
-                         units.Quantity(0.0, 'hr'))
+                         units.Quantity(0.0, 'hr'), device='cpu')
     return j_rt, rt
 
 
@@ -201,7 +204,8 @@ def test_fused_rejects_unexpected_param_leaf():
     silent zero gradient from the fused backward: refused with ValueError
     (reference fused.py:522-529)."""
     pred = NeRFPredictor(scale=8.0, net_width=16, net_depth=2)
-    params = pred.init_params(generator=torch.Generator().manual_seed(0))
+    params = pred.init_params(generator=torch.Generator().manual_seed(0),
+                              device='cpu')
     params.register_parameter('extra', torch.nn.Parameter(torch.zeros(3)))
     n = fused.TILE_N
     with pytest.raises(ValueError, match='extra'):
@@ -214,7 +218,8 @@ def test_fused_injection_leaf_gets_zero_cotangent():
     offset leaf's own cotangent is zero, not missing (test_fused.py:117)."""
     pred = NeRFPredictor(scale=8.0, net_width=16, net_depth=2,
                          learn_injection=True)
-    params = pred.init_params(generator=torch.Generator().manual_seed(0))
+    params = pred.init_params(generator=torch.Generator().manual_seed(0),
+                              device='cpu')
     n = fused.TILE_N
     em = fused.render_samples(params, pred, torch.zeros(1),
                               torch.zeros(3, n), torch.full((n,), 0.02),
@@ -223,3 +228,32 @@ def test_fused_injection_leaf_gets_zero_cotangent():
     assert params.t_injection.grad is not None
     assert float(params.t_injection.grad) == 0.0
     assert params.mlp.layers[0].weight.grad is not None
+
+
+@pytest.mark.parametrize('width,ok', [(128, True), (16, True), (144, False),
+                                      (24, False)])
+def test_cuda_input_check_widths(width, ok):
+    """The wrappers' check refuses the widths the kernels' supported()
+    refuses (multiples of 16 up to MAX_WIDTH), before any launch; the
+    backward has no row limit besides its shared memory."""
+    n = fused.TILE_N
+    tensors = [torch.zeros(3, n), torch.zeros(1, n)]
+    if ok:
+        fused._check_cuda_inputs(tensors, (4, width, True), n)
+    else:
+        with pytest.raises(ValueError, match='net_width'):
+            fused._check_cuda_inputs(tensors, (4, width, True), n)
+
+
+def test_kernel_limits_match_source():
+    """TILE_N and MAX_WIDTH stay in step with fused_render.cu: the tile
+    is BN, and the forward takes one 16-row weight tile per warp."""
+    src = (Path(fused.__file__).parent / 'csrc' / 'fused_render.cu') \
+        .read_text()
+    const = lambda name: int(re.search(
+        rf'constexpr int {name} = (\d+);', src).group(1))
+    assert const('BN') == fused.TILE_N
+    assert 'width <= 16 * NWARPS' in src
+    assert fused.MAX_WIDTH == 16 * (const('NTHREADS') // 32)
+    assert fused.TILE_N % int(re.search(r'#define BWD_BN_DEF (\d+)',
+                                        src).group(1)) == 0

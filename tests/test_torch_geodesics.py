@@ -70,7 +70,7 @@ def test_raytracing_args_leaves_match_jax(geos_pair, field):
     j_rt = j_raytracing_args(jg, jg.keplerian_omega(), t_inj,
                              j_units.Quantity(0.1, 'hr'))
     rt = raytracing_args(tg, tg.keplerian_omega(), t_inj,
-                         units.Quantity(0.1, 'hr'))
+                         units.Quantity(0.1, 'hr'), device='cpu')
     a = np.asarray(getattr(j_rt, field))
     b = getattr(rt, field).numpy()
     assert b.dtype == np.float32 and a.shape == b.shape

@@ -6,6 +6,7 @@ parameters copied in with params_from_jax, frame indices passed
 explicitly. On the CPU the fused path runs the kernels' plain versions.
 """
 import dataclasses
+import inspect
 
 import numpy as np
 import pytest
@@ -28,7 +29,8 @@ from bhnerf_tpu_torch.geodesics.dataset import Geodesics
 from bhnerf_tpu_torch.models.fields import NeRFPredictor
 from bhnerf_tpu_torch.ops import fused
 from bhnerf_tpu_torch.train import step
-from bhnerf_tpu_torch.train.optimizer import LogFn, Optimizer, TrainStep
+from bhnerf_tpu_torch.train.optimizer import (LogFn, Optimizer,
+                                              TemporalBatchedArgs, TrainStep)
 from bhnerf_tpu_torch.train.state import TrainState, make_optimizer
 
 PRED_KW = dict(scale=8.0, rmin=3.0, rmax=8.0, z_width=2.0, net_depth=4,
@@ -48,7 +50,7 @@ def setup():
     tgeos = Geodesics(**{f: np.asarray(getattr(geos, f))
                          for f in Geodesics._FIELDS + Geodesics._AUX})
     rt = step.raytracing_args(tgeos, tgeos.keplerian_omega(), t_inj,
-                              units.Quantity(0.0, 'hr'))
+                              units.Quantity(0.0, 'hr'), device='cpu')
     jpred, pred = JPredictor(**PRED_KW), NeRFPredictor(**PRED_KW)
     jparams = jpred.init_params(seed=0)
     # lift the head so the emission (and its gradients) is macroscopic
@@ -67,7 +69,7 @@ def setup():
 
 def torch_params(s):
     return s['pred'].params_from_jax(
-        jax.tree_util.tree_map(np.asarray, s['jparams']))
+        jax.tree_util.tree_map(np.asarray, s['jparams']), device='cpu')
 
 
 @pytest.mark.parametrize('field', ['coords', 'Omega', 'weights',
@@ -220,9 +222,10 @@ def test_optimizer_run_lowers_loss_on_cpu(setup):
     nt = 6
     t_frames = units.Quantity(np.linspace(0.0, 0.2, nt), 'hr')
     target = 1e-3 * rng.random((nt, 8, 8)).astype(np.float32)
-    train_step = TrainStep.image(t_frames, target, s['pred'], fused=True)
+    train_step = TrainStep.image(t_frames, target, s['pred'], fused=True,
+                                 device='cpu')
     opt = Optimizer({'num_iters': 8, 'lr_init': 1e-3, 'seed': 0},
-                    s['pred'], s['crt'])
+                    s['pred'], s['crt'], device='cpu')
     losses = []
     launches = (fused.render_fwd.launches, fused.render_bwd.launches)
     opt.run(3, train_step, s['crt'],
@@ -232,3 +235,15 @@ def test_optimizer_run_lowers_loss_on_cpu(setup):
     assert np.all(np.isfinite(losses))
     assert losses[-1] < losses[0]
     assert (fused.render_fwd.launches, fused.render_bwd.launches) == launches
+
+
+
+@pytest.mark.parametrize('entry_point', [
+    Optimizer.__init__, TrainStep.image, TemporalBatchedArgs.__init__,
+    step.raytracing_args, NeRFPredictor.init_params,
+    NeRFPredictor.params_from_jax], ids=lambda f: f.__qualname__)
+def test_entry_points_default_to_the_card(entry_point):
+    """The port's entry points run on the card unless the caller asks for
+    the CPU (as these tests do): each one's `device` defaults to 'cuda'."""
+    assert inspect.signature(entry_point).parameters['device'].default \
+        == 'cuda'
