@@ -310,13 +310,16 @@ fused_render_fwd_kernel(const float* __restrict__ t_eff,
 // Block shape of the backward; the defaults are the shipped build, the
 // macros let a timing script build the other routes from this source.
 #ifndef BWD_THREADS_DEF
-#define BWD_THREADS_DEF 256
+#define BWD_THREADS_DEF 512
 #endif
 #ifndef BWD_BN_DEF
 #define BWD_BN_DEF 64
 #endif
 #ifndef BWD_BLOCKS_DEF
 #define BWD_BLOCKS_DEF 1
+#endif
+#ifndef BWD_PREFETCH_DEF
+#define BWD_PREFETCH_DEF 1
 #endif
 constexpr int BWD_THREADS = BWD_THREADS_DEF;
 constexpr int BWD_WARPS = BWD_THREADS / 32;
@@ -327,9 +330,14 @@ constexpr int BLD = BBN + 4;            // row stride, 4 mod 32 words: the
 constexpr int BWD_BLOCKS = BWD_BLOCKS_DEF;  // resident blocks per SM
 static_assert(BN % BBN == 0 && BBN % 32 == 0, "BBN divides the tile");
 
-// a warp's unit of output: MT x NT tiles of m16 x n8
-constexpr int MT = 2;
-constexpr int NT = 2;
+// A warp's unit of output is MT x NT tiles of m16 x n8. The products that
+// read weights from L2 take 16 x 32 units, so a tile's 64 columns read
+// each weight twice; the weight gradients (operands in shared memory)
+// take 32 x 16.
+constexpr int WT_MT = 1, WT_NT = 4;
+constexpr int WG_MT = 2, WG_NT = 2;
+// k-steps of weights in flight per warp, to cover the L2 latency
+constexpr int A_PREFETCH = BWD_PREFETCH_DEF;
 
 __device__ __forceinline__ uint32_t tf32_bits(float x) {
   uint32_t r;
@@ -393,39 +401,47 @@ __device__ __forceinline__ void mma_step(float acc[4], const OpA& a,
 // acc[m][n] += sum over k-steps ks of A(m, ks) B(n, ks) for one unit.
 // lda(m, ks, a) loads the lane's four A elements of m-tile m at k-step
 // ks, ldb(n, ks, b) its two B elements. Each element is split once and
-// feeds all MT x NT tiles; the next k-step's raw elements are loaded
-// before this step's MMAs are issued.
-template <bool SPLIT, typename LA, typename LB>
+// feeds all MT x NT tiles. A runs PF k-steps ahead (a ring of raw
+// fragments), B one.
+template <bool SPLIT, int MT, int NT, int PF, typename LA, typename LB>
 __device__ __forceinline__ void unit_product(float acc[MT][NT][4],
                                              int ksteps, LA lda, LB ldb) {
-  float ra[MT][4], rb[NT][2];
+  float ra[PF][MT][4], rb[NT][2];
 #pragma unroll
-  for (int m = 0; m < MT; ++m) lda(m, 0, ra[m]);
+  for (int p = 0; p < PF; ++p)
+    if (p < ksteps)
+#pragma unroll
+      for (int m = 0; m < MT; ++m) lda(m, p, ra[p][m]);
 #pragma unroll
   for (int n = 0; n < NT; ++n) ldb(n, 0, rb[n]);
-  for (int ks = 0; ks < ksteps; ++ks) {
-    OpA a[MT];
-    OpB b[NT];
+  for (int ks0 = 0; ks0 < ksteps; ks0 += PF) {
 #pragma unroll
-    for (int m = 0; m < MT; ++m)
+    for (int p = 0; p < PF; ++p) {
+      const int ks = ks0 + p;
+      if (ks >= ksteps) break;
+      OpA a[MT];
+      OpB b[NT];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        split_tf32<SPLIT>(ra[m][j], a[m].hi[j], a[m].lo[j]);
+      for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+        for (int j = 0; j < 4; ++j)
+          split_tf32<SPLIT>(ra[p][m][j], a[m].hi[j], a[m].lo[j]);
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        split_tf32<SPLIT>(rb[n][j], b[n].hi[j], b[n].lo[j]);
-    if (ks + 1 < ksteps) {
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int m = 0; m < MT; ++m) lda(m, ks + 1, ra[m]);
+        for (int j = 0; j < 2; ++j)
+          split_tf32<SPLIT>(rb[n][j], b[n].hi[j], b[n].lo[j]);
+      if (ks + PF < ksteps)
 #pragma unroll
-      for (int n = 0; n < NT; ++n) ldb(n, ks + 1, rb[n]);
+        for (int m = 0; m < MT; ++m) lda(m, ks + PF, ra[p][m]);
+      if (ks + 1 < ksteps)
+#pragma unroll
+        for (int n = 0; n < NT; ++n) ldb(n, ks + 1, rb[n]);
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < NT; ++n) mma_step<SPLIT>(acc[m][n], a[m], b[n]);
     }
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int n = 0; n < NT; ++n) mma_step<SPLIT>(acc[m][n], a[m], b[n]);
   }
 }
 
@@ -447,11 +463,16 @@ struct TileRows {
   }
 };
 
-__device__ __forceinline__ void lane_coords(int& warp, int& g, int& q) {
+__device__ __forceinline__ void lane_coords(int& g, int& q) {
   const int lane = threadIdx.x % 32;
-  warp = threadIdx.x / 32;
   g = lane / 4;
   q = lane % 4;
+}
+
+// units of MT x NT tiles over an M x N output, M and N multiples of 16
+template <int MT, int NT>
+__device__ __forceinline__ int n_units(int M, int N) {
+  return (M + 16 * MT - 1) / (16 * MT) * (N / (8 * NT));
 }
 
 // out (M rows x BBN) = rnd(relu(W . X + b)) with W (M x Kp) row-major in
@@ -464,14 +485,14 @@ __device__ __forceinline__ void recompute_layer(const float* __restrict__ Wg,
                                                 const TileRows& X,
                                                 const float* __restrict__ b,
                                                 float* out, bool bf16) {
-  int warp, g, q;
-  lane_coords(warp, g, q);
-  constexpr int nu_n = BBN / (8 * NT);
-  const int n_units = (M + 16 * MT - 1) / (16 * MT) * nu_n;
-  for (int u = warp; u < n_units; u += BWD_WARPS) {
+  constexpr int MT = WT_MT, NT = WT_NT, nu_n = BBN / (8 * NT);
+  int g, q;
+  lane_coords(g, q);
+  const int units = n_units<MT, NT>(M, BBN);
+  for (int u = threadIdx.x / 32; u < units; u += BWD_WARPS) {
     const int m0 = u / nu_n * 16 * MT, c0 = u % nu_n * 8 * NT;
     float acc[MT][NT][4] = {};
-    unit_product<SPLIT>(
+    unit_product<SPLIT, MT, NT, A_PREFETCH>(
         acc, Kp / 8,
         [&](int m, int ks, float* a) {
           const int r = m0 + 16 * m + g;
@@ -509,124 +530,137 @@ __device__ __forceinline__ void recompute_layer(const float* __restrict__ Wg,
   }
 }
 
-// dW (M x Kp, row-major in this block's partial at pw) += d_pre (M rows x
-// BBN, shared) . X^T (X: Kp rows, shared). The partial's old values are
-// loaded before the products and added after them, so their latency
-// overlaps the MMAs.
+// Unit u of dW (M x Kp, row-major in this block's partial at pw) +=
+// d_pre (M rows x BBN, shared) . X^T (X: Kp rows, shared). The partial's
+// old values are loaded before the products and added after them, so
+// their latency overlaps the MMAs.
 template <bool SPLIT>
-__device__ __forceinline__ void weight_grad(float* __restrict__ pw, int Kp,
-                                            int M, const float* dpre,
-                                            const TileRows& X) {
-  int warp, g, q;
-  lane_coords(warp, g, q);
+__device__ __forceinline__ void weight_grad_unit(int u, float* __restrict__ pw,
+                                                 int Kp, int M,
+                                                 const float* dpre,
+                                                 const TileRows& X) {
+  constexpr int MT = WG_MT, NT = WG_NT;
+  int g, q;
+  lane_coords(g, q);
   const int nu_n = Kp / (8 * NT);
-  const int n_units = (M + 16 * MT - 1) / (16 * MT) * nu_n;
-  for (int u = warp; u < n_units; u += BWD_WARPS) {
-    const int m0 = u / nu_n * 16 * MT, k0 = u % nu_n * 8 * NT;
-    float2 old[MT][NT][2];
+  const int m0 = u / nu_n * 16 * MT, k0 = u % nu_n * 8 * NT;
+  float2 old[MT][NT][2];
 #pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      const int r = m0 + 16 * m + g;
+  for (int m = 0; m < MT; ++m) {
+    const int r = m0 + 16 * m + g;
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const float* p = pw + (size_t)r * Kp + k0 + 8 * n + 2 * q;
-        old[m][n][0] = r < M ? *reinterpret_cast<const float2*>(p)
-                             : make_float2(0.f, 0.f);
-        old[m][n][1] = r < M ? *reinterpret_cast<const float2*>(p + 8 * Kp)
-                             : make_float2(0.f, 0.f);
-      }
+    for (int n = 0; n < NT; ++n) {
+      const float* p = pw + (size_t)r * Kp + k0 + 8 * n + 2 * q;
+      old[m][n][0] = r < M ? *reinterpret_cast<const float2*>(p)
+                           : make_float2(0.f, 0.f);
+      old[m][n][1] = r < M ? *reinterpret_cast<const float2*>(p + 8 * Kp)
+                           : make_float2(0.f, 0.f);
     }
-    float acc[MT][NT][4] = {};
-    unit_product<SPLIT>(
-        acc, BBN / 8,
-        [&](int m, int ks, float* a) {
-          const int r = m0 + 16 * m + g, c = 8 * ks + q;
-          if (r < M) {
-            const float* d0 = dpre + r * BLD + c;
-            a[0] = d0[0]; a[1] = d0[8 * BLD]; a[2] = d0[4];
-            a[3] = d0[8 * BLD + 4];
-          } else {
-            a[0] = a[1] = a[2] = a[3] = 0.f;
-          }
-        },
-        [&](int n, int ks, float* bb) {
-          const float* xr = X.row(k0 + 8 * n + g) + 8 * ks + q;
-          bb[0] = xr[0];
-          bb[1] = xr[4];
-        });
+  }
+  float acc[MT][NT][4] = {};
+  unit_product<SPLIT, MT, NT, 1>(
+      acc, BBN / 8,
+      [&](int m, int ks, float* a) {
+        const int r = m0 + 16 * m + g, c = 8 * ks + q;
+        if (r < M) {
+          const float* d0 = dpre + r * BLD + c;
+          a[0] = d0[0]; a[1] = d0[8 * BLD]; a[2] = d0[4];
+          a[3] = d0[8 * BLD + 4];
+        } else {
+          a[0] = a[1] = a[2] = a[3] = 0.f;
+        }
+      },
+      [&](int n, int ks, float* bb) {
+        const float* xr = X.row(k0 + 8 * n + g) + 8 * ks + q;
+        bb[0] = xr[0];
+        bb[1] = xr[4];
+      });
 #pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      const int r = m0 + 16 * m + g;
-      if (r >= M) continue;
+  for (int m = 0; m < MT; ++m) {
+    const int r = m0 + 16 * m + g;
+    if (r >= M) continue;
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        float* p = pw + (size_t)r * Kp + k0 + 8 * n + 2 * q;
-        const float* v = acc[m][n];
-        *reinterpret_cast<float2*>(p) =
-            make_float2(old[m][n][0].x + v[0], old[m][n][0].y + v[1]);
-        *reinterpret_cast<float2*>(p + 8 * Kp) =
-            make_float2(old[m][n][1].x + v[2], old[m][n][1].y + v[3]);
-      }
+    for (int n = 0; n < NT; ++n) {
+      float* p = pw + (size_t)r * Kp + k0 + 8 * n + 2 * q;
+      const float* v = acc[m][n];
+      *reinterpret_cast<float2*>(p) =
+          make_float2(old[m][n][0].x + v[0], old[m][n][0].y + v[1]);
+      *reinterpret_cast<float2*>(p + 8 * Kp) =
+          make_float2(old[m][n][1].x + v[2], old[m][n][1].y + v[3]);
     }
   }
 }
 
-// dst (Kp rows x BBN, shared) = W^T . d_pre, or dst += it with `add`:
-// W (M x Kp) row-major in device memory read transposed, A(k, o) =
+// Unit u of dst (Kp rows x BBN, shared) = W^T . d_pre, or dst += it with
+// `add`: W (M x Kp) row-major in device memory read transposed, A(k, o) =
 // W[o][k]; d_pre (M rows, shared). k-step ks covers o = 8 ks + 2q and
 // 8 ks + 2q + 1, as in recompute_layer.
 template <bool SPLIT>
-__device__ __forceinline__ void back_product(const float* __restrict__ Wg,
-                                             int Kp, int M,
-                                             const float* dpre, float* dst,
-                                             bool add) {
-  int warp, g, q;
-  lane_coords(warp, g, q);
-  constexpr int nu_n = BBN / (8 * NT);
-  const int n_units = (Kp + 16 * MT - 1) / (16 * MT) * nu_n;
-  for (int u = warp; u < n_units; u += BWD_WARPS) {
-    const int m0 = u / nu_n * 16 * MT, c0 = u % nu_n * 8 * NT;
-    float acc[MT][NT][4] = {};
-    unit_product<SPLIT>(
-        acc, M / 8,
-        [&](int m, int ks, float* a) {
-          const int r = m0 + 16 * m + g;
-          if (r < Kp) {
-            const float* wo = Wg + (size_t)(8 * ks + 2 * q) * Kp + r;
-            a[0] = __ldg(wo);
-            a[1] = __ldg(wo + 8);
-            a[2] = __ldg(wo + Kp);
-            a[3] = __ldg(wo + Kp + 8);
-          } else {
-            a[0] = a[1] = a[2] = a[3] = 0.f;
-          }
-        },
-        [&](int n, int ks, float* bb) {
-          const float* d0 = dpre + (8 * ks + 2 * q) * BLD + c0 + 8 * n + g;
-          bb[0] = d0[0];
-          bb[1] = d0[BLD];
-        });
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      const int r = m0 + 16 * m + g;
-      if (r >= Kp) continue;
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const int c = c0 + 8 * n + 2 * q;
-        float2* d0 = reinterpret_cast<float2*>(dst + r * BLD + c);
-        float2* d8 = reinterpret_cast<float2*>(dst + (r + 8) * BLD + c);
-        const float* v = acc[m][n];
-        float2 o0 = make_float2(v[0], v[1]), o8 = make_float2(v[2], v[3]);
-        if (add) {
-          o0.x += d0->x; o0.y += d0->y;
-          o8.x += d8->x; o8.y += d8->y;
+__device__ __forceinline__ void back_unit(int u, const float* __restrict__ Wg,
+                                          int Kp, int M, const float* dpre,
+                                          float* dst, bool add) {
+  constexpr int MT = WT_MT, NT = WT_NT, nu_n = BBN / (8 * NT);
+  int g, q;
+  lane_coords(g, q);
+  const int m0 = u / nu_n * 16 * MT, c0 = u % nu_n * 8 * NT;
+  float acc[MT][NT][4] = {};
+  unit_product<SPLIT, MT, NT, A_PREFETCH>(
+      acc, M / 8,
+      [&](int m, int ks, float* a) {
+        const int r = m0 + 16 * m + g;
+        if (r < Kp) {
+          const float* wo = Wg + (size_t)(8 * ks + 2 * q) * Kp + r;
+          a[0] = __ldg(wo);
+          a[1] = __ldg(wo + 8);
+          a[2] = __ldg(wo + Kp);
+          a[3] = __ldg(wo + Kp + 8);
+        } else {
+          a[0] = a[1] = a[2] = a[3] = 0.f;
         }
-        *d0 = o0;
-        *d8 = o8;
+      },
+      [&](int n, int ks, float* bb) {
+        const float* d0 = dpre + (8 * ks + 2 * q) * BLD + c0 + 8 * n + g;
+        bb[0] = d0[0];
+        bb[1] = d0[BLD];
+      });
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    const int r = m0 + 16 * m + g;
+    if (r >= Kp) continue;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int c = c0 + 8 * n + 2 * q;
+      float2* d0 = reinterpret_cast<float2*>(dst + r * BLD + c);
+      float2* d8 = reinterpret_cast<float2*>(dst + (r + 8) * BLD + c);
+      const float* v = acc[m][n];
+      float2 o0 = make_float2(v[0], v[1]), o8 = make_float2(v[2], v[3]);
+      if (add) {
+        o0.x += d0->x; o0.y += d0->y;
+        o8.x += d8->x; o8.y += d8->y;
       }
+      *d0 = o0;
+      *d8 = o8;
     }
   }
 }
+
+// A measurement build (-DBWD_PHASE_TIMERS) sums, per block, the clock
+// cycles thread 0 sees between the barriers that close each phase of a
+// tile: 0 feature load, 1 recompute, 2 head, 3 masks and bias sums,
+// 4 weight gradients and products back, 5 frame-time cotangent.
+#ifdef BWD_PHASE_TIMERS
+constexpr int N_PHASES = 6;
+constexpr int MAX_TIMED_BLOCKS = 1024;
+__device__ long long bwd_phase_cycles[MAX_TIMED_BLOCKS * N_PHASES];
+#define BWD_PHASE(k)                        \
+  if (tid == 0) {                           \
+    const long long now = clock64();        \
+    phase_cycles[k] += now - stamp;         \
+    stamp = now;                            \
+  }
+#else
+#define BWD_PHASE(k)
+#endif
 
 // input rows of layer i: F for layer 0, else h_{i-1} (+ F after a skip)
 __device__ __forceinline__ TileRows layer_input(const Net& net, int i,
@@ -657,6 +691,13 @@ fused_render_bwd_kernel(const float* __restrict__ g_em,
   float* dh = Fs + FP * BLD;             // (W + FP) rows
   float* dF = dh + (W + FP) * BLD;       // FP rows
   float* vec = dF + FP * BLD;            // BBN
+  // this block's bias gradients (b_off order) and then the head's weight
+  // gradients, summed over its tiles here and written once at the end:
+  // a per-tile read-modify-write of the partial in device memory would
+  // wait on L2 for every row
+  float* gacc = vec + BBN;
+  const int n_bias = net.b_off[D] + 1;
+  const int n_gacc = n_bias + net.in_dim[D];
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
   const int n_stiles = N / BBN;
@@ -664,6 +705,14 @@ fused_render_bwd_kernel(const float* __restrict__ g_em,
   const size_t cols = (size_t)nt * N;
   float* part = partial + (size_t)blockIdx.x * stride;
   float* dbp = part + net.n_weights;
+  for (int idx = tid; idx < n_gacc; idx += BWD_THREADS) gacc[idx] = 0.f;
+  // thread 0's frame-time sum of the current frame: a block's tiles run
+  // in frame order, so each frame is written to dt_partial once
+  int dt_frame = -1;
+  float dt_sum = 0.f;
+#ifdef BWD_PHASE_TIMERS
+  long long phase_cycles[N_PHASES] = {}, stamp = clock64();
+#endif
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int t = tile / n_stiles;
@@ -682,6 +731,7 @@ fused_render_bwd_kernel(const float* __restrict__ g_em,
       vec[tid] = rnd(g_em[col0 + tid] * e * (1.f - e), BF16);
     }
     __syncthreads();
+    BWD_PHASE(0);
 
     // recompute the hidden activations
     for (int i = 0; i < D; ++i) {
@@ -689,6 +739,7 @@ fused_render_bwd_kernel(const float* __restrict__ g_em,
                              layer_input(net, i, acts, Fs),
                              bias + net.b_off[i], acts + i * W * BLD, BF16);
       __syncthreads();
+      BWD_PHASE(1);
     }
 
     // head: dW_D and db_D as warp sums over the columns, d_h = W_D^T d_out
@@ -701,19 +752,20 @@ fused_render_bwd_kernel(const float* __restrict__ g_em,
         float s = 0.f;
         for (int c = lane; c < BBN; c += 32) s = fmaf(vec[c], r[c], s);
         s = warp_sum(s);
-        if (lane == 0) part[net.w_off[D] + k] += s;
+        if (lane == 0) gacc[n_bias + k] += s;
       }
       if (warp == BWD_WARPS - 1) {
         float s = 0.f;
         for (int c = lane; c < BBN; c += 32) s += vec[c];
         s = warp_sum(s);
-        if (lane == 0) dbp[net.b_off[D]] += s;
+        if (lane == 0) gacc[net.b_off[D]] += s;
       }
       for (int idx = tid; idx < Kp * BBN; idx += BWD_THREADS) {
         int k = idx / BBN, c = idx % BBN;
         dh[k * BLD + c] = wh[k] * vec[c];
       }
       __syncthreads();
+      BWD_PHASE(2);
     }
 
     for (int i = D - 1; i >= 0; --i) {
@@ -736,21 +788,32 @@ fused_render_bwd_kernel(const float* __restrict__ g_em,
         }
         if (o < W) {
           s = warp_sum(s);
-          if (lane == 0) dbp[net.b_off[i] + o] += s;
+          if (lane == 0) gacc[net.b_off[i] + o] += s;
         }
       }
       __syncthreads();
+      BWD_PHASE(3);
 
       // dW_i += d_pre . in^T into this block's partial, and d_h (Kp rows)
       // = W_i^T d_pre; layer 0 adds onto dF (the skip branch) when
-      // want_dt. Neither reads what the other writes.
+      // want_dt. Neither reads what the other writes, so their units form
+      // one list dealt round-robin to the warps, the longer units of the
+      // products back through the weights first.
       const int Kp = net.in_pad[i];
-      weight_grad<SPLIT>(part + net.w_off[i], Kp, W, h,
-                         layer_input(net, i, acts, Fs));
-      if (i > 0 || want_dt)
-        back_product<SPLIT>(w + net.w_off[i], Kp, W, h, i > 0 ? dh : dF,
-                            i == 0);
+      const TileRows in = layer_input(net, i, acts, Fs);
+      const int n_back =
+          i > 0 || want_dt ? n_units<WT_MT, WT_NT>(Kp, BBN) : 0;
+      const int n_all = n_back + n_units<WG_MT, WG_NT>(W, Kp);
+      for (int u = warp; u < n_all; u += BWD_WARPS) {
+        if (u < n_back)
+          back_unit<SPLIT>(u, w + net.w_off[i], Kp, W, h, i > 0 ? dh : dF,
+                           i == 0);
+        else
+          weight_grad_unit<SPLIT>(u - n_back, part + net.w_off[i], Kp, W, h,
+                                  in);
+      }
       __syncthreads();
+      BWD_PHASE(4);
     }
 
     // frame-time cotangent: posenc chain, then d theta = dw . (wy, -wx, 0),
@@ -781,11 +844,31 @@ fused_render_bwd_kernel(const float* __restrict__ g_em,
       if (tid == 0) {
         float s = 0.f;
         for (int k = 0; k < BWD_WARPS; ++k) s += vec[k];
-        dt_partial[(size_t)blockIdx.x * nt + t] += s;
+        if (t != dt_frame) {
+          if (dt_frame >= 0)
+            dt_partial[(size_t)blockIdx.x * nt + dt_frame] = dt_sum;
+          dt_frame = t;
+          dt_sum = 0.f;
+        }
+        dt_sum += s;
       }
     }
     __syncthreads();
+    BWD_PHASE(5);
   }
+  for (int idx = tid; idx < n_gacc; idx += BWD_THREADS) {
+    if (idx < n_bias)
+      dbp[idx] = gacc[idx];
+    else
+      part[net.w_off[D] + idx - n_bias] = gacc[idx];
+  }
+  if (tid == 0 && dt_frame >= 0)
+    dt_partial[(size_t)blockIdx.x * nt + dt_frame] = dt_sum;
+#ifdef BWD_PHASE_TIMERS
+  if (tid == 0)
+    for (int k = 0; k < N_PHASES; ++k)
+      bwd_phase_cycles[blockIdx.x * N_PHASES + k] = phase_cycles[k];
+#endif
 }
 
 // out[p] = sum_{g < G} partial[g * stride + p] for p < P, in the fixed
@@ -851,12 +934,23 @@ int fused_render_n_params(int depth, int width, int feat, int do_skip) {
 
 int fused_render_bwd_tile() { return BBN; }
 
+#ifdef BWD_PHASE_TIMERS
+// the phase cycles of the last launch: (blocks, N_PHASES) into host memory
+int fused_render_bwd_phases(long long* out, int blocks) {
+  if (blocks > MAX_TIMED_BLOCKS) return (int)cudaErrorInvalidValue;
+  return (int)cudaMemcpyFromSymbol(out, bwd_phase_cycles,
+                                   sizeof(long long) * blocks * N_PHASES);
+}
+#endif
+
 int fused_render_bwd_blocks_per_sm() { return BWD_BLOCKS; }
 
 size_t fused_render_bwd_smem(int depth, int width, int feat) {
   size_t fp = pad16(feat);
+  // rows of activations and cotangents, then vec (BBN) and the block's
+  // bias and head gradients (depth * width + 1 + at most width + fp)
   return sizeof(float) * (((size_t)depth * width + fp + width + fp + fp) *
-                              BLD + BBN);
+                              BLD + BBN + depth * width + 1 + width + fp);
 }
 
 int fused_render_fwd(const float* t_eff, const float* coords,

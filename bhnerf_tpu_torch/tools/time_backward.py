@@ -122,7 +122,28 @@ def runner(lib, dtype, want_dt, em, F, omega, g, weights, biases, device):
             stream)
         _build.check(err, 'fused_render_bwd')
         return grads, d_t
+    fn.grid = grid
     return fn
+
+
+PHASES = ('feature load', 'recompute', 'head', 'masks + bias sums',
+          'weight grads + products back', 'frame-time cotangent')
+
+
+def phase_split(lib, fn):
+    """Cycles per phase of one launch of a build made with
+    -DBWD_PHASE_TIMERS (summed over blocks), or None for other builds."""
+    try:
+        get = lib.fused_render_bwd_phases
+    except AttributeError:
+        return None
+    fn()
+    torch.cuda.synchronize()
+    out = np.zeros((fn.grid, len(PHASES)), np.int64)
+    get.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    get.restype = ctypes.c_int
+    _build.check(get(out.ctypes.data, fn.grid), 'fused_render_bwd_phases')
+    return out.sum(axis=0)
 
 
 def unpack(grads, weights, biases):
@@ -212,6 +233,13 @@ def main(argv=None):
                 norm, dt_rel = checks[name]
                 row = dict(variant=name, dtype=dtype, want_dt=want_dt,
                            ms=ms, norm_err=norm, dt_rel_err=dt_rel)
+                cycles = phase_split(libs[name][0], fns[name])
+                if cycles is not None:
+                    share = cycles / cycles.sum()
+                    row['phase_share'] = dict(zip(PHASES, share.tolist()))
+                    print(f'  {name} phases: ' + ', '.join(
+                        f'{p} {100 * x:.1f}%' for p, x in zip(PHASES, share)),
+                        flush=True)
                 results.append(row)
                 print(f'{dtype} want_dt={want_dt} {name}: {ms:.3f} ms, '
                       f'normalised err {norm:.3e}, d_t rel err {dt_rel}',
