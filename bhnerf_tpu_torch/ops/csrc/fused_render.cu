@@ -307,28 +307,12 @@ fused_render_fwd_kernel(const float* __restrict__ t_eff,
 // ---------------------------------------------------------------------------
 // backward: register-fragment mma.sync products
 // ---------------------------------------------------------------------------
-// Block shape of the backward; the defaults are the shipped build, the
-// macros let a timing script build the other routes from this source.
-#ifndef BWD_THREADS_DEF
-#define BWD_THREADS_DEF 512
-#endif
-#ifndef BWD_BN_DEF
-#define BWD_BN_DEF 64
-#endif
-#ifndef BWD_BLOCKS_DEF
-#define BWD_BLOCKS_DEF 1
-#endif
-#ifndef BWD_PREFETCH_DEF
-#define BWD_PREFETCH_DEF 1
-#endif
-constexpr int BWD_THREADS = BWD_THREADS_DEF;
+// 16 warps per block, one block per SM (~200 KB of shared memory): at
+// most 128 registers a thread. The shared-memory row stride LD = BN + 4 is
+// 4 mod 32 words, which keeps every fragment load below free of bank
+// conflicts.
+constexpr int BWD_THREADS = 512;
 constexpr int BWD_WARPS = BWD_THREADS / 32;
-constexpr int BBN = BWD_BN_DEF;         // columns per backward tile
-constexpr int BLD = BBN + 4;            // row stride, 4 mod 32 words: the
-                                        // fragment loads below are free of
-                                        // bank conflicts
-constexpr int BWD_BLOCKS = BWD_BLOCKS_DEF;  // resident blocks per SM
-static_assert(BN % BBN == 0 && BBN % 32 == 0, "BBN divides the tile");
 
 // A warp's unit of output is MT x NT tiles of m16 x n8. The products that
 // read weights from L2 take 16 x 32 units, so a tile's 64 columns read
@@ -336,8 +320,6 @@ static_assert(BN % BBN == 0 && BBN % 32 == 0, "BBN divides the tile");
 // take 32 x 16.
 constexpr int WT_MT = 1, WT_NT = 4;
 constexpr int WG_MT = 2, WG_NT = 2;
-// k-steps of weights in flight per warp, to cover the L2 latency
-constexpr int A_PREFETCH = BWD_PREFETCH_DEF;
 
 __device__ __forceinline__ uint32_t tf32_bits(float x) {
   uint32_t r;
@@ -401,47 +383,39 @@ __device__ __forceinline__ void mma_step(float acc[4], const OpA& a,
 // acc[m][n] += sum over k-steps ks of A(m, ks) B(n, ks) for one unit.
 // lda(m, ks, a) loads the lane's four A elements of m-tile m at k-step
 // ks, ldb(n, ks, b) its two B elements. Each element is split once and
-// feeds all MT x NT tiles. A runs PF k-steps ahead (a ring of raw
-// fragments), B one.
-template <bool SPLIT, int MT, int NT, int PF, typename LA, typename LB>
+// feeds all MT x NT tiles; the next k-step's raw elements are loaded
+// before this step's MMAs are issued.
+template <bool SPLIT, int MT, int NT, typename LA, typename LB>
 __device__ __forceinline__ void unit_product(float acc[MT][NT][4],
                                              int ksteps, LA lda, LB ldb) {
-  float ra[PF][MT][4], rb[NT][2];
+  float ra[MT][4], rb[NT][2];
 #pragma unroll
-  for (int p = 0; p < PF; ++p)
-    if (p < ksteps)
-#pragma unroll
-      for (int m = 0; m < MT; ++m) lda(m, p, ra[p][m]);
+  for (int m = 0; m < MT; ++m) lda(m, 0, ra[m]);
 #pragma unroll
   for (int n = 0; n < NT; ++n) ldb(n, 0, rb[n]);
-  for (int ks0 = 0; ks0 < ksteps; ks0 += PF) {
+  for (int ks = 0; ks < ksteps; ++ks) {
+    OpA a[MT];
+    OpB b[NT];
 #pragma unroll
-    for (int p = 0; p < PF; ++p) {
-      const int ks = ks0 + p;
-      if (ks >= ksteps) break;
-      OpA a[MT];
-      OpB b[NT];
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int m = 0; m < MT; ++m)
+      for (int j = 0; j < 4; ++j)
+        split_tf32<SPLIT>(ra[m][j], a[m].hi[j], a[m].lo[j]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          split_tf32<SPLIT>(ra[p][m][j], a[m].hi[j], a[m].lo[j]);
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int n = 0; n < NT; ++n)
+      for (int j = 0; j < 2; ++j)
+        split_tf32<SPLIT>(rb[n][j], b[n].hi[j], b[n].lo[j]);
+    if (ks + 1 < ksteps) {
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          split_tf32<SPLIT>(rb[n][j], b[n].hi[j], b[n].lo[j]);
-      if (ks + PF < ksteps)
+      for (int m = 0; m < MT; ++m) lda(m, ks + 1, ra[m]);
 #pragma unroll
-        for (int m = 0; m < MT; ++m) lda(m, ks + PF, ra[p][m]);
-      if (ks + 1 < ksteps)
-#pragma unroll
-        for (int n = 0; n < NT; ++n) ldb(n, ks + 1, rb[n]);
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int n = 0; n < NT; ++n) mma_step<SPLIT>(acc[m][n], a[m], b[n]);
+      for (int n = 0; n < NT; ++n) ldb(n, ks + 1, rb[n]);
     }
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int n = 0; n < NT; ++n) mma_step<SPLIT>(acc[m][n], a[m], b[n]);
   }
 }
 
@@ -451,17 +425,6 @@ __device__ __forceinline__ float warp_sum(float s) {
     s += __shfl_xor_sync(0xffffffffu, s, off);
   return s;
 }
-
-// Rows at the backward's stride: the first `na` from `a`, the rest from
-// `b` (the skip concatenation [h, F]); na is a multiple of 16.
-struct TileRows {
-  const float* a;
-  int na;
-  const float* b;
-  __device__ __forceinline__ const float* row(int r) const {
-    return r < na ? a + r * BLD : b + (r - na) * BLD;
-  }
-};
 
 __device__ __forceinline__ void lane_coords(int& g, int& q) {
   const int lane = threadIdx.x % 32;
@@ -475,24 +438,24 @@ __device__ __forceinline__ int n_units(int M, int N) {
   return (M + 16 * MT - 1) / (16 * MT) * (N / (8 * NT));
 }
 
-// out (M rows x BBN) = rnd(relu(W . X + b)) with W (M x Kp) row-major in
+// out (M rows x BN) = rnd(relu(W . X + b)) with W (M x Kp) row-major in
 // device memory and X (Kp rows, shared). k-step ks covers k = 8 ks + 2q
 // (fragment column q) and 8 ks + 2q + 1 (column q + 4), so a lane's two
 // weights of a row are one 8-byte load.
 template <bool SPLIT>
 __device__ __forceinline__ void recompute_layer(const float* __restrict__ Wg,
                                                 int Kp, int M,
-                                                const TileRows& X,
+                                                const Rows& X,
                                                 const float* __restrict__ b,
                                                 float* out, bool bf16) {
-  constexpr int MT = WT_MT, NT = WT_NT, nu_n = BBN / (8 * NT);
+  constexpr int MT = WT_MT, NT = WT_NT, nu_n = BN / (8 * NT);
   int g, q;
   lane_coords(g, q);
-  const int units = n_units<MT, NT>(M, BBN);
+  const int units = n_units<MT, NT>(M, BN);
   for (int u = threadIdx.x / 32; u < units; u += BWD_WARPS) {
     const int m0 = u / nu_n * 16 * MT, c0 = u % nu_n * 8 * NT;
     float acc[MT][NT][4] = {};
-    unit_product<SPLIT, MT, NT, A_PREFETCH>(
+    unit_product<SPLIT, MT, NT>(
         acc, Kp / 8,
         [&](int m, int ks, float* a) {
           const int r = m0 + 16 * m + g;
@@ -519,10 +482,10 @@ __device__ __forceinline__ void recompute_layer(const float* __restrict__ Wg,
       for (int n = 0; n < NT; ++n) {
         const int c = c0 + 8 * n + 2 * q;
         const float* v = acc[m][n];
-        *reinterpret_cast<float2*>(out + r * BLD + c) =
+        *reinterpret_cast<float2*>(out + r * LD + c) =
             make_float2(rnd(fmaxf(v[0] + b0, 0.f), bf16),
                         rnd(fmaxf(v[1] + b0, 0.f), bf16));
-        *reinterpret_cast<float2*>(out + (r + 8) * BLD + c) =
+        *reinterpret_cast<float2*>(out + (r + 8) * LD + c) =
             make_float2(rnd(fmaxf(v[2] + b8, 0.f), bf16),
                         rnd(fmaxf(v[3] + b8, 0.f), bf16));
       }
@@ -531,14 +494,14 @@ __device__ __forceinline__ void recompute_layer(const float* __restrict__ Wg,
 }
 
 // Unit u of dW (M x Kp, row-major in this block's partial at pw) +=
-// d_pre (M rows x BBN, shared) . X^T (X: Kp rows, shared). The partial's
+// d_pre (M rows x BN, shared) . X^T (X: Kp rows, shared). The partial's
 // old values are loaded before the products and added after them, so
 // their latency overlaps the MMAs.
 template <bool SPLIT>
 __device__ __forceinline__ void weight_grad_unit(int u, float* __restrict__ pw,
                                                  int Kp, int M,
                                                  const float* dpre,
-                                                 const TileRows& X) {
+                                                 const Rows& X) {
   constexpr int MT = WG_MT, NT = WG_NT;
   int g, q;
   lane_coords(g, q);
@@ -558,14 +521,14 @@ __device__ __forceinline__ void weight_grad_unit(int u, float* __restrict__ pw,
     }
   }
   float acc[MT][NT][4] = {};
-  unit_product<SPLIT, MT, NT, 1>(
-      acc, BBN / 8,
+  unit_product<SPLIT, MT, NT>(
+      acc, BN / 8,
       [&](int m, int ks, float* a) {
         const int r = m0 + 16 * m + g, c = 8 * ks + q;
         if (r < M) {
-          const float* d0 = dpre + r * BLD + c;
-          a[0] = d0[0]; a[1] = d0[8 * BLD]; a[2] = d0[4];
-          a[3] = d0[8 * BLD + 4];
+          const float* d0 = dpre + r * LD + c;
+          a[0] = d0[0]; a[1] = d0[8 * LD]; a[2] = d0[4];
+          a[3] = d0[8 * LD + 4];
         } else {
           a[0] = a[1] = a[2] = a[3] = 0.f;
         }
@@ -591,7 +554,7 @@ __device__ __forceinline__ void weight_grad_unit(int u, float* __restrict__ pw,
   }
 }
 
-// Unit u of dst (Kp rows x BBN, shared) = W^T . d_pre, or dst += it with
+// Unit u of dst (Kp rows x BN, shared) = W^T . d_pre, or dst += it with
 // `add`: W (M x Kp) row-major in device memory read transposed, A(k, o) =
 // W[o][k]; d_pre (M rows, shared). k-step ks covers o = 8 ks + 2q and
 // 8 ks + 2q + 1, as in recompute_layer.
@@ -599,12 +562,12 @@ template <bool SPLIT>
 __device__ __forceinline__ void back_unit(int u, const float* __restrict__ Wg,
                                           int Kp, int M, const float* dpre,
                                           float* dst, bool add) {
-  constexpr int MT = WT_MT, NT = WT_NT, nu_n = BBN / (8 * NT);
+  constexpr int MT = WT_MT, NT = WT_NT, nu_n = BN / (8 * NT);
   int g, q;
   lane_coords(g, q);
   const int m0 = u / nu_n * 16 * MT, c0 = u % nu_n * 8 * NT;
   float acc[MT][NT][4] = {};
-  unit_product<SPLIT, MT, NT, A_PREFETCH>(
+  unit_product<SPLIT, MT, NT>(
       acc, M / 8,
       [&](int m, int ks, float* a) {
         const int r = m0 + 16 * m + g;
@@ -619,9 +582,9 @@ __device__ __forceinline__ void back_unit(int u, const float* __restrict__ Wg,
         }
       },
       [&](int n, int ks, float* bb) {
-        const float* d0 = dpre + (8 * ks + 2 * q) * BLD + c0 + 8 * n + g;
+        const float* d0 = dpre + (8 * ks + 2 * q) * LD + c0 + 8 * n + g;
         bb[0] = d0[0];
-        bb[1] = d0[BLD];
+        bb[1] = d0[LD];
       });
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
@@ -630,8 +593,8 @@ __device__ __forceinline__ void back_unit(int u, const float* __restrict__ Wg,
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       const int c = c0 + 8 * n + 2 * q;
-      float2* d0 = reinterpret_cast<float2*>(dst + r * BLD + c);
-      float2* d8 = reinterpret_cast<float2*>(dst + (r + 8) * BLD + c);
+      float2* d0 = reinterpret_cast<float2*>(dst + r * LD + c);
+      float2* d8 = reinterpret_cast<float2*>(dst + (r + 8) * LD + c);
       const float* v = acc[m][n];
       float2 o0 = make_float2(v[0], v[1]), o8 = make_float2(v[2], v[3]);
       if (add) {
@@ -663,16 +626,16 @@ __device__ long long bwd_phase_cycles[MAX_TIMED_BLOCKS * N_PHASES];
 #endif
 
 // input rows of layer i: F for layer 0, else h_{i-1} (+ F after a skip)
-__device__ __forceinline__ TileRows layer_input(const Net& net, int i,
+__device__ __forceinline__ Rows layer_input(const Net& net, int i,
                                                 const float* acts,
                                                 const float* Fs) {
-  if (i == 0) return TileRows{Fs, net.feat_pad, nullptr};
-  return TileRows{acts + (size_t)(i - 1) * net.width * BLD, net.width,
+  if (i == 0) return Rows{Fs, net.feat_pad, nullptr};
+  return Rows{acts + (size_t)(i - 1) * net.width * LD, net.width,
                   skip_after(net, i - 1) ? Fs : nullptr};
 }
 
 template <bool BF16>
-__global__ void __launch_bounds__(BWD_THREADS, BWD_BLOCKS)
+__global__ void __launch_bounds__(BWD_THREADS, 1)
 fused_render_bwd_kernel(const float* __restrict__ g_em,
                         const float* __restrict__ em,
                         const float* __restrict__ fstash,
@@ -687,20 +650,20 @@ fused_render_bwd_kernel(const float* __restrict__ g_em,
   const int W = net.width, Fd = net.feat, FP = net.feat_pad, D = net.depth;
   float* acts = smem;                    // D x (W rows): h_i, overwritten
                                          // by d_pre_i on the way back
-  float* Fs = acts + D * W * BLD;        // FP rows
-  float* dh = Fs + FP * BLD;             // (W + FP) rows
-  float* dF = dh + (W + FP) * BLD;       // FP rows
-  float* vec = dF + FP * BLD;            // BBN
+  float* Fs = acts + D * W * LD;        // FP rows
+  float* dh = Fs + FP * LD;             // (W + FP) rows
+  float* dF = dh + (W + FP) * LD;       // FP rows
+  float* vec = dF + FP * LD;            // BN
   // this block's bias gradients (b_off order) and then the head's weight
   // gradients, summed over its tiles here and written once at the end:
   // a per-tile read-modify-write of the partial in device memory would
   // wait on L2 for every row
-  float* gacc = vec + BBN;
+  float* gacc = vec + BN;
   const int n_bias = net.b_off[D] + 1;
   const int n_gacc = n_bias + net.in_dim[D];
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
-  const int n_stiles = N / BBN;
+  const int n_stiles = N / BN;
   const int n_tiles = n_stiles * nt;
   const size_t cols = (size_t)nt * N;
   float* part = partial + (size_t)blockIdx.x * stride;
@@ -716,17 +679,17 @@ fused_render_bwd_kernel(const float* __restrict__ g_em,
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int t = tile / n_stiles;
-    const int n0 = (tile % n_stiles) * BBN;
+    const int n0 = (tile % n_stiles) * BN;
     const size_t col0 = (size_t)t * N + n0;
 
     // stashed features (already in the compute dtype, padding rows 0)
     // and the head cotangent d_out = g * em * (1 - em)
-    for (int idx = tid; idx < FP * BBN; idx += BWD_THREADS) {
-      int r = idx / BBN, c = idx % BBN;
-      Fs[r * BLD + c] = r < Fd ? fstash[r * cols + col0 + c] : 0.f;
-      dF[r * BLD + c] = 0.f;
+    for (int idx = tid; idx < FP * BN; idx += BWD_THREADS) {
+      int r = idx / BN, c = idx % BN;
+      Fs[r * LD + c] = r < Fd ? fstash[r * cols + col0 + c] : 0.f;
+      dF[r * LD + c] = 0.f;
     }
-    if (tid < BBN) {
+    if (tid < BN) {
       float e = em[col0 + tid];
       vec[tid] = rnd(g_em[col0 + tid] * e * (1.f - e), BF16);
     }
@@ -737,7 +700,7 @@ fused_render_bwd_kernel(const float* __restrict__ g_em,
     for (int i = 0; i < D; ++i) {
       recompute_layer<SPLIT>(w + net.w_off[i], net.in_pad[i], W,
                              layer_input(net, i, acts, Fs),
-                             bias + net.b_off[i], acts + i * W * BLD, BF16);
+                             bias + net.b_off[i], acts + i * W * LD, BF16);
       __syncthreads();
       BWD_PHASE(1);
     }
@@ -745,24 +708,24 @@ fused_render_bwd_kernel(const float* __restrict__ g_em,
     // head: dW_D and db_D as warp sums over the columns, d_h = W_D^T d_out
     {
       const int Kp = net.in_pad[D];
-      const TileRows in = layer_input(net, D, acts, Fs);
+      const Rows in = layer_input(net, D, acts, Fs);
       const float* wh = w + net.w_off[D];   // (1, Kp), padding zero
       for (int k = warp; k < net.in_dim[D]; k += BWD_WARPS) {
         const float* r = in.row(k);
         float s = 0.f;
-        for (int c = lane; c < BBN; c += 32) s = fmaf(vec[c], r[c], s);
+        for (int c = lane; c < BN; c += 32) s = fmaf(vec[c], r[c], s);
         s = warp_sum(s);
         if (lane == 0) gacc[n_bias + k] += s;
       }
       if (warp == BWD_WARPS - 1) {
         float s = 0.f;
-        for (int c = lane; c < BBN; c += 32) s += vec[c];
+        for (int c = lane; c < BN; c += 32) s += vec[c];
         s = warp_sum(s);
         if (lane == 0) gacc[net.b_off[D]] += s;
       }
-      for (int idx = tid; idx < Kp * BBN; idx += BWD_THREADS) {
-        int k = idx / BBN, c = idx % BBN;
-        dh[k * BLD + c] = wh[k] * vec[c];
+      for (int idx = tid; idx < Kp * BN; idx += BWD_THREADS) {
+        int k = idx / BN, c = idx % BN;
+        dh[k * LD + c] = wh[k] * vec[c];
       }
       __syncthreads();
       BWD_PHASE(2);
@@ -773,16 +736,16 @@ fused_render_bwd_kernel(const float* __restrict__ g_em,
       // its row sum (db_i) as a warp sum, and the skip cotangent (rows
       // [W, W + FP) of d_h belong to F) onto dF
       const bool split_f = skip_after(net, i) && want_dt;
-      float* h = acts + i * W * BLD;
+      float* h = acts + i * W * LD;
       const int rows = split_f && FP > W ? FP : W;
       for (int o = warp; o < rows; o += BWD_WARPS) {
         float s = 0.f;
-        for (int c = lane; c < BBN; c += 32) {
-          if (split_f && o < FP) dF[o * BLD + c] += dh[(W + o) * BLD + c];
+        for (int c = lane; c < BN; c += 32) {
+          if (split_f && o < FP) dF[o * LD + c] += dh[(W + o) * LD + c];
           if (o < W) {
-            const float d = h[o * BLD + c] > 0.f
-                                ? rnd(dh[o * BLD + c], BF16) : 0.f;
-            h[o * BLD + c] = d;
+            const float d = h[o * LD + c] > 0.f
+                                ? rnd(dh[o * LD + c], BF16) : 0.f;
+            h[o * LD + c] = d;
             s += d;
           }
         }
@@ -800,9 +763,9 @@ fused_render_bwd_kernel(const float* __restrict__ g_em,
       // one list dealt round-robin to the warps, the longer units of the
       // products back through the weights first.
       const int Kp = net.in_pad[i];
-      const TileRows in = layer_input(net, i, acts, Fs);
+      const Rows in = layer_input(net, i, acts, Fs);
       const int n_back =
-          i > 0 || want_dt ? n_units<WT_MT, WT_NT>(Kp, BBN) : 0;
+          i > 0 || want_dt ? n_units<WT_MT, WT_NT>(Kp, BN) : 0;
       const int n_all = n_back + n_units<WG_MT, WG_NT>(W, Kp);
       for (int u = warp; u < n_all; u += BWD_WARPS) {
         if (u < n_back)
@@ -820,22 +783,22 @@ fused_render_bwd_kernel(const float* __restrict__ g_em,
     // summed over the tile as a block reduction
     if (want_dt) {
       float v = 0.f;
-      if (tid < BBN) {
+      if (tid < BN) {
         const int c = tid;
         float dw[3];
-        for (int j = 0; j < 3; ++j) dw[j] = dF[j * BLD + c];
+        for (int j = 0; j < 3; ++j) dw[j] = dF[j * LD + c];
         float p2 = 1.f;
         for (int i = 0; i < deg; ++i) {
           for (int j = 0; j < 3; ++j) {
-            float s = Fs[(3 + 3 * i + j) * BLD + c];
-            float co = Fs[(3 + 3 * deg + 3 * i + j) * BLD + c];
-            float ds = dF[(3 + 3 * i + j) * BLD + c];
-            float dc = dF[(3 + 3 * deg + 3 * i + j) * BLD + c];
+            float s = Fs[(3 + 3 * i + j) * LD + c];
+            float co = Fs[(3 + 3 * deg + 3 * i + j) * LD + c];
+            float ds = dF[(3 + 3 * i + j) * LD + c];
+            float dc = dF[(3 + 3 * deg + 3 * i + j) * LD + c];
             dw[j] = dw[j] + p2 * (ds * co - dc * s);
           }
           p2 *= 2.f;
         }
-        float dtheta = dw[0] * Fs[1 * BLD + c] - dw[1] * Fs[0 * BLD + c];
+        float dtheta = dw[0] * Fs[1 * LD + c] - dw[1] * Fs[0 * LD + c];
         v = dtheta * omega[n0 + c];
       }
       v = warp_sum(v);
@@ -932,8 +895,6 @@ int fused_render_n_params(int depth, int width, int feat, int do_skip) {
   return net.n_weights + net.b_off[depth] + 1;
 }
 
-int fused_render_bwd_tile() { return BBN; }
-
 #ifdef BWD_PHASE_TIMERS
 // the phase cycles of the last launch: (blocks, N_PHASES) into host memory
 int fused_render_bwd_phases(long long* out, int blocks) {
@@ -943,14 +904,12 @@ int fused_render_bwd_phases(long long* out, int blocks) {
 }
 #endif
 
-int fused_render_bwd_blocks_per_sm() { return BWD_BLOCKS; }
-
 size_t fused_render_bwd_smem(int depth, int width, int feat) {
   size_t fp = pad16(feat);
-  // rows of activations and cotangents, then vec (BBN) and the block's
+  // rows of activations and cotangents, then vec (BN) and the block's
   // bias and head gradients (depth * width + 1 + at most width + fp)
   return sizeof(float) * (((size_t)depth * width + fp + width + fp + fp) *
-                              BLD + BBN + depth * width + 1 + width + fp);
+                              LD + BN + depth * width + 1 + width + fp);
 }
 
 int fused_render_fwd(const float* t_eff, const float* coords,
@@ -975,8 +934,7 @@ int fused_render_fwd(const float* t_eff, const float* coords,
 }
 
 // partial: (grid, stride) floats, zeroed, stride >= n_params and a
-// multiple of 8 (aligned rows for the 8-byte loads and stores); grid up
-// to fused_render_bwd_blocks_per_sm() blocks per SM.
+// multiple of 8 (aligned rows for the 8-byte loads and stores).
 int fused_render_bwd(const float* g_em, const float* em, const float* fstash,
                      const float* omega, const float* w, const float* bias,
                      float* partial, int stride, float* dt_partial,

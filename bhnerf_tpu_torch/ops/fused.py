@@ -184,8 +184,6 @@ def _lib():
     lib.fused_render_bwd_smem.restype = ctypes.c_size_t
     lib.fused_render_n_params.argtypes = [_I] * 4
     lib.fused_render_n_params.restype = _I
-    lib.fused_render_bwd_tile.restype = _I
-    lib.fused_render_bwd_blocks_per_sm.restype = _I
     lib.fused_render_tile.restype = _I
     if lib.fused_render_tile() != TILE_N:
         raise RuntimeError('fused_render.cu tile differs from TILE_N')
@@ -272,10 +270,9 @@ def render_bwd(g_em, em, f_store, omega, weights, biases, cfg, deg,
     """Backward kernel (CUDA tensors) or its plain version (CPU tensors).
     Returns ([dW_i (out, in)], [db_i (out,)], d_t (nt, 1)).
 
-    On the card the parameter gradients come from a persistent grid of
-    as many blocks as the card holds at once, each summing its tiles into
-    a private partial, and a fixed-order sum of the partials:
-    deterministic from run to run."""
+    On the card the parameter gradients come from a persistent grid of one
+    block per SM, each summing its tiles into a private partial, and a
+    fixed-order sum of the partials: deterministic from run to run."""
     if g_em.device.type == 'cpu':
         return render_bwd_plain(g_em, em, f_store, omega, weights, biases,
                                 cfg, deg, compute_dtype, want_dt)
@@ -297,9 +294,7 @@ def render_bwd(g_em, em, f_store, omega, weights, biases, cfg, deg,
                          f'card allows {limit}')
     w, b, n_params = _pack_cuda(weights, biases, cfg, feat, bf16)
     stride = -(-n_params // 8) * 8      # 32-byte aligned partial rows
-    grid = min(props.multi_processor_count
-               * lib.fused_render_bwd_blocks_per_sm(),
-               nt * (n // lib.fused_render_bwd_tile()))
+    grid = min(props.multi_processor_count, nt * (n // TILE_N))
     dev = g_em.device
     partial = torch.zeros((grid, stride), dtype=torch.float32, device=dev)
     dt_partial = torch.zeros((grid, nt), dtype=torch.float32, device=dev)

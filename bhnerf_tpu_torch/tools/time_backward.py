@@ -14,11 +14,12 @@ plain version.
     python -m bhnerf_tpu_torch.tools.time_backward \\
         --variant parent=path/to/old/fused_render.cu \\
         --variant new=bhnerf_tpu_torch/ops/csrc/fused_render.cu \\
-        --variant wide=bhnerf_tpu_torch/ops/csrc/fused_render.cu:-DBWD_THREADS_DEF=512 \\
-        --order parent,new,new,parent
+        --variant timed=bhnerf_tpu_torch/ops/csrc/fused_render.cu:-DBWD_PHASE_TIMERS \\
+        --order parent,new,timed,new,parent
 
-Prints one line per timing and, last, a JSON summary (also written to
---out).
+A build made with -DBWD_PHASE_TIMERS also reports the share of the
+kernel's cycles in each phase of a tile. Prints one line per timing and,
+last, a JSON summary (also written to --out if given).
 """
 from __future__ import annotations
 
@@ -65,16 +66,6 @@ def build(variants):
     return libs
 
 
-def blocks_and_tile(lib):
-    """Blocks per SM and tile columns of a build (older builds: 1, 64)."""
-    try:
-        lib.fused_render_bwd_blocks_per_sm.restype = fused._I
-        lib.fused_render_bwd_tile.restype = fused._I
-        return lib.fused_render_bwd_blocks_per_sm(), lib.fused_render_bwd_tile()
-    except AttributeError:
-        return 1, fused.TILE_N
-
-
 def make_inputs(device):
     rng = np.random.default_rng(0)
     put = lambda x: torch.as_tensor(np.asarray(x, np.float32)).to(
@@ -102,9 +93,8 @@ def runner(lib, dtype, want_dt, em, F, omega, g, weights, biases, device):
     feat = F.shape[0]
     w, b, n_params = fused._pack_cuda(weights, biases, cfg, feat, bf16)
     stride = -(-n_params // 8) * 8
-    per_sm, tile = blocks_and_tile(lib)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    grid = min(sms * per_sm, NT * (N // tile))
+    grid = min(sms, NT * (N // fused.TILE_N))
     partial = torch.empty((grid, stride), dtype=torch.float32, device=device)
     dt_partial = torch.empty((grid, NT), dtype=torch.float32, device=device)
     grads = torch.empty(n_params, dtype=torch.float32, device=device)
@@ -179,7 +169,7 @@ def main(argv=None):
     ap.add_argument('--order', required=True,
                     help='comma-separated variant names, timed in turn')
     ap.add_argument('--repeats', type=int, default=50)
-    ap.add_argument('--out', default='chiprun_out/time_backward.json')
+    ap.add_argument('--out', help='also write the JSON summary here')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print('time_backward: needs a CUDA device', file=sys.stderr)
@@ -248,8 +238,9 @@ def main(argv=None):
                    variants={k: [str(v[0]), v[1]] for k, v in
                              variants.items()},
                    ptxas={k: v[1] for k, v in libs.items()}, results=results)
-    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-    Path(args.out).write_text(json.dumps(summary, indent=1))
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(summary, indent=1))
     print(json.dumps(summary), flush=True)
     return 0
 
