@@ -76,23 +76,12 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int BN = 64;            // columns (sample x frame) per tile
-constexpr int LD = BN + 4;        // shared-memory row stride (WMMA: x4)
-constexpr int NTHREADS = 256;
-constexpr int NWARPS = NTHREADS / 32;
+constexpr int BN = 64;            // backward: columns (sample x frame) per tile
+constexpr int LD = BN + 4;        // its shared-memory row stride, 4 mod 32 words
 constexpr int MAX_LAYERS = 16;
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 8,
-                             wmma::precision::tf32, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 8,
-                             wmma::precision::tf32, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 8, float>;
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -102,42 +91,6 @@ __device__ __forceinline__ float rnd(float x, bool bf16) {
   return bf16 ? round_bf16(x) : x;
 }
 
-// acc += a * b. split: 3xTF32 for f32 operands (small terms first);
-// otherwise the operands are exact in TF32 (bf16 values) and one product
-// is exact. The tensor cores round their f32 sums toward zero, so each
-// k-step sums into a fresh fragment and is added to acc in IEEE f32: the
-// truncation then stays at a few ulps of one step instead of building up
-// along K (and across the backward's tiles).
-template <typename FA, typename FB>
-__device__ __forceinline__ void mma_f32(FragC& acc, const FA& a,
-                                        const FB& b, bool split) {
-  FA ah;
-  FB bh;
-#pragma unroll
-  for (int i = 0; i < ah.num_elements; ++i)
-    ah.x[i] = wmma::__float_to_tf32(a.x[i]);
-#pragma unroll
-  for (int i = 0; i < bh.num_elements; ++i)
-    bh.x[i] = wmma::__float_to_tf32(b.x[i]);
-  FragC step;
-  wmma::fill_fragment(step, 0.f);
-  if (split) {
-    FA al;
-    FB bl;
-#pragma unroll
-    for (int i = 0; i < al.num_elements; ++i)
-      al.x[i] = wmma::__float_to_tf32(a.x[i] - ah.x[i]);
-#pragma unroll
-    for (int i = 0; i < bl.num_elements; ++i)
-      bl.x[i] = wmma::__float_to_tf32(b.x[i] - bh.x[i]);
-    wmma::mma_sync(step, al, bh, step);
-    wmma::mma_sync(step, ah, bl, step);
-  }
-  wmma::mma_sync(step, ah, bh, step);
-#pragma unroll
-  for (int i = 0; i < acc.num_elements; ++i) acc.x[i] += step.x[i];
-}
-
 struct Net {
   int depth, width, feat, feat_pad, do_skip, bf16;
   int in_dim[MAX_LAYERS];   // real input width of layer i
@@ -145,6 +98,10 @@ struct Net {
   int w_off[MAX_LAYERS];    // offset of layer i in the packed weights
   int b_off[MAX_LAYERS];    // offset of layer i in the packed biases
   int n_weights;            // padded weight floats (biases start here)
+  int wf_off[MAX_LAYERS];   // offset of hidden layer i in the forward's
+                            // fragment-ordered weights
+  int wf_planes;            // 2: TF32 hi and lo parts (f32 mode); else 1
+  int n_wf;                 // floats of those
 };
 
 // F is concatenated after layer i (reference fields.py:124)
@@ -156,171 +113,20 @@ __device__ __forceinline__ bool skip_after(const Net& net, int i) {
 // Rows of a layer input: the first `na` rows from `a`, the rest from `b`
 // (the skip concatenation [h, F] without a copy). na is a multiple of 16,
 // so no 8- or 16-row fragment straddles the two.
-struct Rows {
+template <int STRIDE>
+struct RowsT {
   const float* a;
   int na;
   const float* b;
   __device__ __forceinline__ const float* row(int r) const {
-    return r < na ? a + r * LD : b + (r - na) * LD;
+    return r < na ? a + r * STRIDE : b + (r - na) * STRIDE;
   }
 };
-
-// Layer product for one tile: warp w computes rows [16w, 16w + 16) of
-// W (M x Kp, row-major in device memory) times X (Kp rows x BN, shared
-// memory) into acc[0..3] (the four 16-column tiles). Warps past M idle.
-// The next k-step's weight fragment is loaded before this step's
-// products, to overlap its L2 latency.
-__device__ __forceinline__ void layer_product(const float* __restrict__ Wg,
-                                              int Kp, int M, const Rows& X,
-                                              bool split, FragC acc[4]) {
-  const int warp = threadIdx.x / 32;
-  if (warp * 16 >= M) return;
-  const float* wrow = Wg + (size_t)warp * 16 * Kp;
-#pragma unroll
-  for (int n = 0; n < 4; ++n) wmma::fill_fragment(acc[n], 0.f);
-  FragA a, a_next;
-  wmma::load_matrix_sync(a, wrow, Kp);
-  for (int k0 = 0; k0 < Kp; k0 += 8) {
-    if (k0 + 8 < Kp) wmma::load_matrix_sync(a_next, wrow + k0 + 8, Kp);
-    const float* xrow = X.row(k0);
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      FragB b;
-      wmma::load_matrix_sync(b, xrow + n * 16, LD);
-      mma_f32(acc[n], a, b, split);
-    }
-    a = a_next;
-  }
-}
-
-__device__ __forceinline__ void store_product(float* out, int M,
-                                              FragC acc[4]) {
-  const int warp = threadIdx.x / 32;
-  if (warp * 16 >= M) return;
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-    wmma::store_matrix_sync(out + warp * 16 * LD + n * 16, acc[n], LD,
-                            wmma::mem_row_major);
-}
-
-// out[m][c] = rnd(relu(out[m][c] + b[m])) for m < M, c < BN
-__device__ __forceinline__ void bias_relu(float* out, int M,
-                                          const float* __restrict__ b,
-                                          bool bf16) {
-  for (int idx = threadIdx.x; idx < M * BN; idx += NTHREADS) {
-    int m = idx / BN, c = idx % BN;
-    out[m * LD + c] = rnd(fmaxf(out[m * LD + c] + b[m], 0.f), bf16);
-  }
-}
-
-// Velocity warp + positional encoding of one column into rows of `Fs`
-// (row stride LD), rounded to the compute dtype; mirrors _prologue
-// (reference fused.py:84-121). Returns the validity x domain mask.
-__device__ __forceinline__ float prologue(float t, const float* coords,
-                                          const float* omega, const float* tg,
-                                          const float* smask, int n, int N,
-                                          float inv_scale, int deg, bool bf16,
-                                          float* Fs, int c) {
-  float tM = t + tg[n];
-  bool valid = tM >= 0.f;
-  float theta = (valid ? tM : 0.f) * omega[n];
-  float ct = cosf(theta), st = sinf(theta);
-  float x = coords[n], y = coords[N + n], z = coords[2 * N + n];
-  float vf = valid ? 1.f : 0.f;
-  float w[3];
-  w[0] = (ct * x + st * y) * vf * inv_scale;
-  w[1] = (ct * y - st * x) * vf * inv_scale;
-  w[2] = z * vf * inv_scale;
-  for (int j = 0; j < 3; ++j) {
-    Fs[j * LD + c] = rnd(w[j], bf16);
-    if (deg > 0) {
-      float s = sinf(w[j]), co = cosf(w[j]);
-      Fs[(3 + j) * LD + c] = rnd(s, bf16);
-      Fs[(3 + 3 * deg + j) * LD + c] = rnd(co, bf16);
-      for (int i = 1; i < deg; ++i) {
-        float s2 = 2.f * s * co, c2 = co * co - s * s;
-        s = s2;
-        co = c2;
-        Fs[(3 + 3 * i + j) * LD + c] = rnd(s, bf16);
-        Fs[(3 + 3 * deg + 3 * i + j) * LD + c] = rnd(co, bf16);
-      }
-    }
-  }
-  return vf * smask[n];
-}
-
-__global__ void __launch_bounds__(NTHREADS)
-fused_render_fwd_kernel(const float* __restrict__ t_eff,
-                        const float* __restrict__ coords,
-                        const float* __restrict__ omega,
-                        const float* __restrict__ tg,
-                        const float* __restrict__ smask,
-                        const float* __restrict__ w,
-                        const float* __restrict__ bias,
-                        float* __restrict__ em, float* __restrict__ fstash,
-                        int nt, int N, float inv_scale, int deg, Net net) {
-  extern __shared__ __align__(128) float smem[];
-  const int W = net.width, Fd = net.feat, FP = net.feat_pad, D = net.depth;
-  const bool bf16 = net.bf16;
-  float* H = smem;                      // rows [0, W): hidden; [W, W+FP): F
-  float* Fs = H + W * LD;
-  float* mask = H + (W + FP) * LD;      // (BN,)
-  const int tid = threadIdx.x;
-  const int t = blockIdx.y;
-  const int n0 = blockIdx.x * BN;
-  const size_t cols = (size_t)nt * N;
-
-  for (int idx = tid; idx < (FP - Fd) * BN; idx += NTHREADS)
-    Fs[(Fd + idx / BN) * LD + idx % BN] = 0.f;   // padding rows
-  if (tid < BN) {
-    mask[tid] = prologue(t_eff[t], coords, omega, tg, smask, n0 + tid, N,
-                         inv_scale, deg, bf16, Fs, tid);
-    if (fstash != nullptr)
-      for (int r = 0; r < Fd; ++r)
-        fstash[r * cols + (size_t)t * N + n0 + tid] = Fs[r * LD + tid];
-  }
-  __syncthreads();
-
-  FragC acc[4];
-  for (int i = 0; i < D; ++i) {
-    Rows in = (i == 0) ? Rows{Fs, FP, nullptr}
-                       : Rows{H, net.in_pad[i], nullptr};
-    layer_product(w + net.w_off[i], net.in_pad[i], W, in, !bf16, acc);
-    __syncthreads();                    // in place: all reads done
-    store_product(H, W, acc);
-    __syncthreads();
-    bias_relu(H, W, bias + net.b_off[i], bf16);
-    __syncthreads();
-  }
-
-  if (tid < BN) {
-    const float* wh = w + net.w_off[D];   // (1, in_pad), padding zero
-    float acc_h = 0.f;
-    for (int k = 0; k < net.in_dim[D]; ++k)
-      acc_h = fmaf(wh[k], H[k * LD + tid], acc_h);
-    float out = bias[net.b_off[D]] + acc_h;
-    float e = 1.f / (1.f + expf(-(out - 10.f)));
-    em[(size_t)t * N + n0 + tid] = e * mask[tid];
-  }
-}
+using Rows = RowsT<LD>;
 
 // ---------------------------------------------------------------------------
-// backward: register-fragment mma.sync products
+// products on register fragments (both kernels)
 // ---------------------------------------------------------------------------
-// 16 warps per block, one block per SM (~200 KB of shared memory): at
-// most 128 registers a thread. The shared-memory row stride LD = BN + 4 is
-// 4 mod 32 words, which keeps every fragment load below free of bank
-// conflicts.
-constexpr int BWD_THREADS = 512;
-constexpr int BWD_WARPS = BWD_THREADS / 32;
-
-// A warp's unit of output is MT x NT tiles of m16 x n8. The products that
-// read weights from L2 take 16 x 32 units, so a tile's 64 columns read
-// each weight twice; the weight gradients (operands in shared memory)
-// take 32 x 16.
-constexpr int WT_MT = 1, WT_NT = 4;
-constexpr int WG_MT = 2, WG_NT = 2;
-
 __device__ __forceinline__ uint32_t tf32_bits(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
@@ -330,10 +136,21 @@ __device__ __forceinline__ uint32_t tf32_bits(float x) {
 // One operand element as the MMAs take it, split once when loaded: with
 // SPLIT (f32 mode) hi = x rounded to TF32 and lo = the rest rounded to
 // TF32; without, x is a bf16 value, which TF32 holds exactly.
-template <bool SPLIT>
+// FINITE rounds with integer arithmetic on the bit pattern (add half a
+// TF32 step to the magnitude; the tensor cores ignore the 13 low bits):
+// the same bits as cvt.rna.tf32 for every finite x at half the
+// instructions, but a NaN may come out finite.
+template <bool SPLIT, bool FINITE = false>
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                                            uint32_t& lo) {
-  if (SPLIT) {
+  if (SPLIT && FINITE) {
+#if FWD_ABLATE == 1
+    hi = lo = __float_as_uint(x);
+#else
+    hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+    lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+#endif
+  } else if (SPLIT) {
     hi = tf32_bits(x);
     lo = tf32_bits(x - __uint_as_float(hi));
   } else {
@@ -370,6 +187,13 @@ struct OpB {
 template <bool SPLIT>
 __device__ __forceinline__ void mma_step(float acc[4], const OpA& a,
                                          const OpB& b) {
+#if FWD_ABLATE == 2
+  if (SPLIT) {
+    mma_tf32(acc, a.lo, b.hi, acc);
+    mma_tf32(acc, a.hi, b.lo, acc);
+  }
+  mma_tf32(acc, a.hi, b.hi, acc);
+#else
   float s[4] = {0.f, 0.f, 0.f, 0.f};
   if (SPLIT) {
     mma_tf32(s, a.lo, b.hi, s);
@@ -378,39 +202,45 @@ __device__ __forceinline__ void mma_step(float acc[4], const OpA& a,
   mma_tf32(s, a.hi, b.hi, s);
 #pragma unroll
   for (int j = 0; j < 4; ++j) acc[j] += s[j];
+#endif
 }
 
 // acc[m][n] += sum over k-steps ks of A(m, ks) B(n, ks) for one unit.
-// lda(m, ks, a) loads the lane's four A elements of m-tile m at k-step
-// ks, ldb(n, ks, b) its two B elements. Each element is split once and
-// feeds all MT x NT tiles; the next k-step's raw elements are loaded
-// before this step's MMAs are issued.
-template <bool SPLIT, int MT, int NT, typename LA, typename LB>
+// lda(ks, a) loads the lane's four A elements of each of the MT m-tiles at
+// k-step ks, ldb(ks, b) its two B elements of each of the NT n-tiles.
+// Each element is split once and feeds all MT x NT tiles; the next
+// k-step's raw elements are loaded before this step's MMAs are issued.
+// With AW = 8 lda delivers A already split, four hi then four lo words.
+template <bool SPLIT, int MT, int NT, bool FINITE = false, int AW = 4,
+          int UNROLL = 1, typename LA, typename LB>
 __device__ __forceinline__ void unit_product(float acc[MT][NT][4],
                                              int ksteps, LA lda, LB ldb) {
-  float ra[MT][4], rb[NT][2];
-#pragma unroll
-  for (int m = 0; m < MT; ++m) lda(m, 0, ra[m]);
-#pragma unroll
-  for (int n = 0; n < NT; ++n) ldb(n, 0, rb[n]);
+  float ra[MT][AW], rb[NT][2];
+  lda(0, ra);
+  ldb(0, rb);
+#pragma unroll UNROLL
   for (int ks = 0; ks < ksteps; ++ks) {
     OpA a[MT];
     OpB b[NT];
 #pragma unroll
     for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        split_tf32<SPLIT>(ra[m][j], a[m].hi[j], a[m].lo[j]);
+      for (int j = 0; j < 4; ++j) {
+        if (AW == 8) {
+          a[m].hi[j] = __float_as_uint(ra[m][j]);
+          a[m].lo[j] = __float_as_uint(ra[m][4 + j]);
+        } else {
+          split_tf32<SPLIT, FINITE>(ra[m][j], a[m].hi[j], a[m].lo[j]);
+        }
+      }
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int j = 0; j < 2; ++j)
-        split_tf32<SPLIT>(rb[n][j], b[n].hi[j], b[n].lo[j]);
+        split_tf32<SPLIT, FINITE>(rb[n][j], b[n].hi[j], b[n].lo[j]);
     if (ks + 1 < ksteps) {
-#pragma unroll
-      for (int m = 0; m < MT; ++m) lda(m, ks + 1, ra[m]);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) ldb(n, ks + 1, rb[n]);
+      lda(ks + 1, ra);
+      ldb(ks + 1, rb);
     }
 #pragma unroll
     for (int m = 0; m < MT; ++m)
@@ -438,6 +268,390 @@ __device__ __forceinline__ int n_units(int M, int N) {
   return (M + 16 * MT - 1) / (16 * MT) * (N / (8 * NT));
 }
 
+// Measurement builds (-DFWD_PHASE_TIMERS, -DBWD_PHASE_TIMERS) sum, per
+// block, the clock cycles thread 0 sees between the points that close each
+// phase of a tile. Forward: 0 prologue, 1 waiting for a weight chunk,
+// 2 products, 3 bias/ReLU stores and the layer's barrier, 4 head.
+// Backward: 0 feature load, 1 recompute, 2 head, 3 masks and bias sums,
+// 4 weight gradients and products back, 5 frame-time cotangent.
+constexpr int MAX_TIMED_BLOCKS = 1024;
+#define PHASE_STAMP(k)                      \
+  if (tid == 0) {                           \
+    const long long now = clock64();        \
+    phase_cycles[k] += now - stamp;         \
+    stamp = now;                            \
+  }
+#ifdef FWD_PHASE_TIMERS
+constexpr int FWD_N_PHASES = 5;
+__device__ long long fwd_phase_cycles[MAX_TIMED_BLOCKS * FWD_N_PHASES];
+#define FWD_PHASE(k) PHASE_STAMP(k)
+#else
+#define FWD_PHASE(k)
+#endif
+#ifdef BWD_PHASE_TIMERS
+constexpr int N_PHASES = 6;
+__device__ long long bwd_phase_cycles[MAX_TIMED_BLOCKS * N_PHASES];
+#define BWD_PHASE(k) PHASE_STAMP(k)
+#else
+#define BWD_PHASE(k)
+#endif
+
+// ---------------------------------------------------------------------------
+// forward: a persistent block per SM, weights staged through shared memory
+// ---------------------------------------------------------------------------
+// A block of 16 warps walks the 128-column tiles t, t + G, t + 2G, ... of
+// the flat column list (column j = frame * N + sample; the last tile may
+// be short). A layer's output (width x 128) is cut into 32 x 32 units, one
+// per warp: the four warps of a group share the 32 weight rows of their
+// m-unit and take one 32-column unit each. What the design does about the
+// matmul chain:
+//   * a pre-pass kernel lays the weights out in MMA fragment order once
+//     per launch, so a 32-row x 32-k chunk of a layer is 4 KB of
+//     contiguous memory and a lane's four A elements are one 16-byte
+//     shared-memory load without bank conflicts;
+//   * each group streams its chunks through a ring of FWD_STAGES buffers
+//     with cp.async, FWD_STAGES - 1 chunks ahead of the products and
+//     across layer and tile boundaries, so no product waits on L2 and
+//     each weight is read from L2 once per 128 columns; the ring is
+//     guarded by one named barrier of the group's 128 threads per chunk;
+//   * MMA column g of tile n stands for tile column 4 g + n, which makes
+//     a lane's B elements for the unit's four tiles one 16-byte load (the
+//     row stride, 8 mod 32 words, keeps it conflict-free) and its outputs
+//     16-byte stores;
+//   * bias, ReLU and rounding run on the accumulator registers and write
+//     the other of two activation buffers: one block barrier per layer;
+//   * the prologue runs one (column, coordinate) pair per thread and the
+//     head four threads per column with a shuffle sum.
+constexpr int FWD_BN = 128;
+constexpr int FWD_LD = FWD_BN + 8;
+constexpr int FWD_THREADS = 512;
+constexpr int FWD_MT = 2;                             // a warp's unit:
+constexpr int FWD_NT = 4;                             // 32 x 32
+constexpr int FWD_GROUP = FWD_BN / (8 * FWD_NT);      // warps per m-unit
+constexpr int FWD_MAX_MU = FWD_THREADS / 32 / FWD_GROUP;
+// Switches of the measurement builds (timing only where FWD_ABLATE is
+// set: 1 no split, 2 no per-k-step add, 3 no activation-fragment loads,
+// 4 no chunk barrier and copies, 5 linear activation loads, 6 no weight
+// loads; their results are wrong)
+#ifndef FWD_KC
+#define FWD_KC 32
+#endif
+#ifndef FWD_UNROLL
+#define FWD_UNROLL 1
+#endif
+#ifndef FWD_ABLATE
+#define FWD_ABLATE 0
+#endif
+constexpr int FWD_CHUNK = 16 * FWD_MT * FWD_KC;       // weights per chunk
+constexpr int FWD_RING = 4096;                        // floats per group
+#ifndef FWD_PRESPLIT
+#define FWD_PRESPLIT false
+#endif
+#ifndef FWD_FINITE_SPLIT
+#define FWD_FINITE_SPLIT true
+#endif
+
+using FwdRows = RowsT<FWD_LD>;
+
+__host__ __device__ __forceinline__ int fwd_m_units(int width) {
+  return (width + 16 * FWD_MT - 1) / (16 * FWD_MT);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               :: "r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(PENDING) : "memory");
+}
+
+// barrier `id` (1..15; 0 is __syncthreads) over `count` threads
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(count) : "memory");
+}
+
+// The hidden layers' weights in fragment order: layer i at wf_off[i] as
+// [m-unit][k-step][m-tile][plane][lane][4], the lane's A fragment of
+// m16n8k8 (rows past the width are zero). With two planes the first holds
+// the TF32 hi parts and the second the lo parts, so the products split no
+// weight. w is the padded (out, in_pad) layout.
+__global__ void fused_render_fwd_pack_kernel(const float* __restrict__ w,
+                                             float* __restrict__ wf,
+                                             Net net) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= net.n_wf) return;
+  const int PL = net.wf_planes;
+  int i = 0;
+  while (i + 1 < net.depth && idx >= net.wf_off[i + 1]) ++i;
+  const int Kp = net.in_pad[i];
+  const int local = idx - net.wf_off[i];
+  const int mu = local / (16 * FWD_MT * PL * Kp);
+  const int rem = local % (16 * FWD_MT * PL * Kp);
+  const int ks = rem / (128 * FWD_MT * PL), m = rem / (128 * PL) % FWD_MT;
+  const int plane = rem / 128 % PL, lane = rem / 4 % 32, e = rem % 4;
+  const int r = 16 * (FWD_MT * mu + m) + lane / 4 + 8 * (e & 1);
+  const int k = 8 * ks + lane % 4 + 4 * (e >> 1);
+  const float x = r < net.width ? w[net.w_off[i] + r * Kp + k] : 0.f;
+  uint32_t hi = __float_as_uint(x), lo = 0u;
+  if (PL == 2) split_tf32<true>(x, hi, lo);
+  wf[idx] = __uint_as_float(plane == 0 ? hi : lo);
+}
+
+template <bool BF16>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+fused_render_fwd_kernel(const float* __restrict__ t_eff,
+                        const float* __restrict__ coords,
+                        const float* __restrict__ omega,
+                        const float* __restrict__ tg,
+                        const float* __restrict__ smask,
+                        const float* __restrict__ w,
+                        const float* __restrict__ wf,
+                        const float* __restrict__ bias,
+                        float* __restrict__ em, float* __restrict__ fstash,
+                        int nt, int N, float inv_scale, int deg, Net net) {
+  constexpr bool SPLIT = !BF16;
+  // planes of the staged weights, floats of a chunk, chunks in the ring
+  constexpr int PL = SPLIT && FWD_PRESPLIT ? 2 : 1;
+  constexpr int CHUNK = PL * FWD_CHUNK, STAGES = FWD_RING / CHUNK;
+  extern __shared__ __align__(128) float smem[];
+  const int W = net.width, Fd = net.feat, FP = net.feat_pad, D = net.depth;
+  // two activation buffers of W rows: layer i writes act(i)
+  auto act = [&](int i) { return smem + (i % 2) * W * FWD_LD; };
+  float* Fs = smem + 2 * W * FWD_LD;            // FP rows
+  float* mask = Fs + FP * FWD_LD;               // (FWD_BN,)
+  float* whs = mask + FWD_BN;                   // head weights (W + FP)
+  float* ring = whs + W + FP;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  int g, q;
+  lane_coords(g, q);
+  const int mu = warp / FWD_GROUP;              // m-unit: rows [32 mu, +32)
+  const int c0 = warp % FWD_GROUP * 8 * FWD_NT; // columns [c0, c0 + 32)
+  const bool active = mu < fwd_m_units(W);
+  const int gtid = tid % (32 * FWD_GROUP);
+  float* stages = ring + mu * FWD_RING;
+  const size_t cols = (size_t)nt * N;
+  const int n_tiles = (int)((cols + FWD_BN - 1) / FWD_BN);
+
+  // The group's weight stream: the chunks of layers 0..D-1, repeated for
+  // each of the block's tiles. `issue` requests the next chunk into the
+  // next stage (an empty commit once all are requested keeps the group
+  // count in step).
+  int chunks_per_tile = 0;
+  for (int i = 0; i < D; ++i)
+    chunks_per_tile += (net.in_pad[i] + FWD_KC - 1) / FWD_KC;
+  const int my_tiles = (int)blockIdx.x < n_tiles
+      ? (n_tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  int to_issue = my_tiles * chunks_per_tile;
+  int p_layer = 0, p_k0 = 0, p_stage = 0, c_stage = 0;
+  auto issue = [&]() {
+    if (to_issue > 0) {
+      const int Kp = net.in_pad[p_layer];
+      const int kc = min(FWD_KC, Kp - p_k0);
+      const float* src = wf + net.wf_off[p_layer] +
+                         16 * FWD_MT * PL * ((size_t)mu * Kp + p_k0);
+      float* dst = stages + p_stage * CHUNK;
+      for (int v = gtid; v < 4 * FWD_MT * PL * kc; v += 32 * FWD_GROUP)
+        cp_async16(dst + 4 * v, src + 4 * v);
+      --to_issue;
+      p_k0 += FWD_KC;
+      if (p_k0 >= Kp) {
+        p_k0 = 0;
+        if (++p_layer == D) p_layer = 0;
+      }
+    }
+    p_stage = (p_stage + 1) % STAGES;
+    cp_async_commit();
+  };
+  if (active)
+    for (int s = 0; s < STAGES - 1; ++s) issue();
+
+  for (int idx = tid; idx < (FP - Fd) * FWD_BN; idx += FWD_THREADS)
+    Fs[(Fd + idx / FWD_BN) * FWD_LD + idx % FWD_BN] = 0.f;   // padding rows
+  for (int k = tid; k < net.in_pad[D]; k += FWD_THREADS)
+    whs[k] = w[net.w_off[D] + k];           // (1, in_pad), padding zero
+
+#ifdef FWD_PHASE_TIMERS
+  long long phase_cycles[FWD_N_PHASES] = {}, stamp = clock64();
+#endif
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    // prologue: velocity warp and positional encoding, one (column,
+    // coordinate) pair per thread (mirrors _prologue, reference
+    // fused.py:84-121); the last 128 threads compute the masks. Columns
+    // past the end repeat the last one and are never stored.
+    {
+      const int c = tid % FWD_BN, j = tid / FWD_BN;
+      const size_t col = (size_t)tile * FWD_BN + c;
+      const bool live = col < cols;
+      const size_t cc = live ? col : cols - 1;
+      const int t = (int)(cc / N), n = (int)(cc - (size_t)t * N);
+      const float tM = t_eff[t] + tg[n];
+      const bool valid = tM >= 0.f;
+      const float vf = valid ? 1.f : 0.f;
+      if (j == 3) {
+        mask[c] = live ? vf * smask[n] : 0.f;
+      } else {
+        float wj;
+        if (j == 2) {
+          wj = coords[2 * (size_t)N + n] * vf * inv_scale;
+        } else {
+          const float theta = (valid ? tM : 0.f) * omega[n];
+          const float ct = cosf(theta), st = sinf(theta);
+          const float x = coords[n], y = coords[(size_t)N + n];
+          wj = j == 0 ? (ct * x + st * y) * vf * inv_scale
+                      : (ct * y - st * x) * vf * inv_scale;
+        }
+        float* stash = live && fstash != nullptr ? fstash + col : nullptr;
+        auto put = [&](int r, float v) {
+          v = rnd(v, BF16);
+          Fs[r * FWD_LD + c] = v;
+          if (stash != nullptr) stash[(size_t)r * cols] = v;
+        };
+        put(j, wj);
+        if (deg > 0) {
+          float s = sinf(wj), co = cosf(wj);
+          put(3 + j, s);
+          put(3 + 3 * deg + j, co);
+          for (int i = 1; i < deg; ++i) {
+            const float s2 = 2.f * s * co, c2 = co * co - s * s;
+            s = s2;
+            co = c2;
+            put(3 + 3 * i + j, s);
+            put(3 + 3 * deg + 3 * i + j, co);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    FWD_PHASE(0);
+
+    for (int i = 0; i < D; ++i) {
+      if (active) {
+        const int Kp = net.in_pad[i];
+        const FwdRows X = i == 0 ? FwdRows{Fs, FP, nullptr}
+                                 : FwdRows{act(i - 1), W, Fs};
+        float acc[FWD_MT][FWD_NT][4] = {};
+        for (int k0 = 0; k0 < Kp; k0 += FWD_KC) {
+          // chunk landed (this thread's copies, then the group's), and
+          // the group is done with the stage the next request overwrites
+#if FWD_ABLATE != 4
+          cp_async_wait<STAGES - 2>();
+          named_barrier(1 + mu, 32 * FWD_GROUP);
+          issue();
+#endif
+          FWD_PHASE(1);
+          const float* A = stages + c_stage * CHUNK + 4 * lane;
+          c_stage = (c_stage + 1) % STAGES;
+          unit_product<SPLIT, FWD_MT, FWD_NT, FWD_FINITE_SPLIT, 4 * PL, FWD_UNROLL>(
+              acc, min(FWD_KC, Kp - k0) / 8,
+              [&](int ks, float (*a)[4 * PL]) {
+#if FWD_ABLATE == 6
+                if (k0 + ks > 0) return;
+#endif
+#pragma unroll
+                for (int m = 0; m < FWD_MT; ++m)
+#pragma unroll
+                  for (int p = 0; p < PL; ++p) {
+                    const float4 v = *reinterpret_cast<const float4*>(
+                        A + 128 * (PL * (FWD_MT * ks + m) + p));
+                    a[m][4 * p] = v.x; a[m][4 * p + 1] = v.y;
+                    a[m][4 * p + 2] = v.z; a[m][4 * p + 3] = v.w;
+                  }
+              },
+              [&](int ks, float (*b)[2]) {
+#if FWD_ABLATE == 3
+                if (k0 + ks > 0) return;
+#endif
+                // rows k and k + 4 of one 8-row step share their source
+#if FWD_ABLATE == 5
+                const float* x = X.row(k0 + 8 * ks) + 4 * lane;
+#else
+                const float* x = X.row(k0 + 8 * ks + q) + c0 + 4 * g;
+#endif
+                const float4 x0 = *reinterpret_cast<const float4*>(x);
+                const float4 x4 =
+                    *reinterpret_cast<const float4*>(x + 4 * FWD_LD);
+                b[0][0] = x0.x; b[1][0] = x0.y; b[2][0] = x0.z; b[3][0] = x0.w;
+                b[0][1] = x4.x; b[1][1] = x4.y; b[2][1] = x4.z; b[3][1] = x4.w;
+              });
+          FWD_PHASE(2);
+        }
+        // acc[m][n] = rows g, g + 8 of m-tile m at tile columns
+        // c0 + 8 q + n and c0 + 8 q + 4 + n
+        float* out = act(i);
+#pragma unroll
+        for (int m = 0; m < FWD_MT; ++m) {
+          const int r = 16 * (FWD_MT * mu + m) + g;
+          if (r >= W) continue;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {           // rows r and r + 8
+            const float b = bias[net.b_off[i] + r + 8 * h];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float4 v;
+              v.x = rnd(fmaxf(acc[m][0][2 * h + e] + b, 0.f), BF16);
+              v.y = rnd(fmaxf(acc[m][1][2 * h + e] + b, 0.f), BF16);
+              v.z = rnd(fmaxf(acc[m][2][2 * h + e] + b, 0.f), BF16);
+              v.w = rnd(fmaxf(acc[m][3][2 * h + e] + b, 0.f), BF16);
+              *reinterpret_cast<float4*>(out + (r + 8 * h) * FWD_LD + c0 +
+                                         8 * q + 4 * e) = v;
+            }
+          }
+        }
+      }
+      __syncthreads();
+      FWD_PHASE(3);
+    }
+
+    // head: four threads per column, each a quarter of the input rows
+    {
+      const int c = tid / 4, part = tid % 4;
+      const FwdRows X{act(D - 1), W, Fs};
+      float s = 0.f;
+#pragma unroll 4
+      for (int k = part; k < net.in_dim[D]; k += 4)
+        s = fmaf(whs[k], X.row(k)[c], s);
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      const size_t col = (size_t)tile * FWD_BN + c;
+      if (part == 0 && col < cols) {
+        const float out = bias[net.b_off[D]] + s;
+        em[col] = 1.f / (1.f + expf(-(out - 10.f))) * mask[c];
+      }
+    }
+    __syncthreads();   // the next prologue overwrites Fs and mask
+    FWD_PHASE(4);
+  }
+#ifdef FWD_PHASE_TIMERS
+  if (tid == 0)
+    for (int k = 0; k < FWD_N_PHASES; ++k)
+      fwd_phase_cycles[blockIdx.x * FWD_N_PHASES + k] = phase_cycles[k];
+#endif
+}
+
+// ---------------------------------------------------------------------------
+// backward: register-fragment mma.sync products
+// ---------------------------------------------------------------------------
+// 16 warps per block, one block per SM (~200 KB of shared memory): at
+// most 128 registers a thread. The shared-memory row stride LD = BN + 4 is
+// 4 mod 32 words, which keeps every fragment load below free of bank
+// conflicts.
+constexpr int BWD_THREADS = 512;
+constexpr int BWD_WARPS = BWD_THREADS / 32;
+
+// A warp's unit of output is MT x NT tiles of m16 x n8. The products that
+// read weights from L2 take 16 x 32 units, so a tile's 64 columns read
+// each weight twice; the weight gradients (operands in shared memory)
+// take 32 x 16.
+constexpr int WT_MT = 1, WT_NT = 4;
+constexpr int WG_MT = 2, WG_NT = 2;
+
 // out (M rows x BN) = rnd(relu(W . X + b)) with W (M x Kp) row-major in
 // device memory and X (Kp rows, shared). k-step ks covers k = 8 ks + 2q
 // (fragment column q) and 8 ks + 2q + 1 (column q + 4), so a lane's two
@@ -457,21 +671,27 @@ __device__ __forceinline__ void recompute_layer(const float* __restrict__ Wg,
     float acc[MT][NT][4] = {};
     unit_product<SPLIT, MT, NT>(
         acc, Kp / 8,
-        [&](int m, int ks, float* a) {
-          const int r = m0 + 16 * m + g;
-          if (r < M) {
-            const float* wr = Wg + (size_t)r * Kp + 8 * ks + 2 * q;
-            float2 x0 = __ldg(reinterpret_cast<const float2*>(wr));
-            float2 x8 = __ldg(reinterpret_cast<const float2*>(wr + 8 * Kp));
-            a[0] = x0.x; a[1] = x8.x; a[2] = x0.y; a[3] = x8.y;
-          } else {
-            a[0] = a[1] = a[2] = a[3] = 0.f;
+        [&](int ks, float (*a)[4]) {
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            const int r = m0 + 16 * m + g;
+            if (r < M) {
+              const float* wr = Wg + (size_t)r * Kp + 8 * ks + 2 * q;
+              float2 x0 = __ldg(reinterpret_cast<const float2*>(wr));
+              float2 x8 = __ldg(reinterpret_cast<const float2*>(wr + 8 * Kp));
+              a[m][0] = x0.x; a[m][1] = x8.x; a[m][2] = x0.y; a[m][3] = x8.y;
+            } else {
+              a[m][0] = a[m][1] = a[m][2] = a[m][3] = 0.f;
+            }
           }
         },
-        [&](int n, int ks, float* bb) {
-          const int k = 8 * ks + 2 * q, c = c0 + 8 * n + g;
-          bb[0] = X.row(k)[c];
-          bb[1] = X.row(k + 1)[c];
+        [&](int ks, float (*bb)[2]) {
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            const int k = 8 * ks + 2 * q, c = c0 + 8 * n + g;
+            bb[n][0] = X.row(k)[c];
+            bb[n][1] = X.row(k + 1)[c];
+          }
         });
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
@@ -523,20 +743,26 @@ __device__ __forceinline__ void weight_grad_unit(int u, float* __restrict__ pw,
   float acc[MT][NT][4] = {};
   unit_product<SPLIT, MT, NT>(
       acc, BN / 8,
-      [&](int m, int ks, float* a) {
-        const int r = m0 + 16 * m + g, c = 8 * ks + q;
-        if (r < M) {
-          const float* d0 = dpre + r * LD + c;
-          a[0] = d0[0]; a[1] = d0[8 * LD]; a[2] = d0[4];
-          a[3] = d0[8 * LD + 4];
-        } else {
-          a[0] = a[1] = a[2] = a[3] = 0.f;
+      [&](int ks, float (*a)[4]) {
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const int r = m0 + 16 * m + g, c = 8 * ks + q;
+          if (r < M) {
+            const float* d0 = dpre + r * LD + c;
+            a[m][0] = d0[0]; a[m][1] = d0[8 * LD]; a[m][2] = d0[4];
+            a[m][3] = d0[8 * LD + 4];
+          } else {
+            a[m][0] = a[m][1] = a[m][2] = a[m][3] = 0.f;
+          }
         }
       },
-      [&](int n, int ks, float* bb) {
-        const float* xr = X.row(k0 + 8 * n + g) + 8 * ks + q;
-        bb[0] = xr[0];
-        bb[1] = xr[4];
+      [&](int ks, float (*bb)[2]) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const float* xr = X.row(k0 + 8 * n + g) + 8 * ks + q;
+          bb[n][0] = xr[0];
+          bb[n][1] = xr[4];
+        }
       });
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
@@ -569,22 +795,28 @@ __device__ __forceinline__ void back_unit(int u, const float* __restrict__ Wg,
   float acc[MT][NT][4] = {};
   unit_product<SPLIT, MT, NT>(
       acc, M / 8,
-      [&](int m, int ks, float* a) {
-        const int r = m0 + 16 * m + g;
-        if (r < Kp) {
-          const float* wo = Wg + (size_t)(8 * ks + 2 * q) * Kp + r;
-          a[0] = __ldg(wo);
-          a[1] = __ldg(wo + 8);
-          a[2] = __ldg(wo + Kp);
-          a[3] = __ldg(wo + Kp + 8);
-        } else {
-          a[0] = a[1] = a[2] = a[3] = 0.f;
+      [&](int ks, float (*a)[4]) {
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const int r = m0 + 16 * m + g;
+          if (r < Kp) {
+            const float* wo = Wg + (size_t)(8 * ks + 2 * q) * Kp + r;
+            a[m][0] = __ldg(wo);
+            a[m][1] = __ldg(wo + 8);
+            a[m][2] = __ldg(wo + Kp);
+            a[m][3] = __ldg(wo + Kp + 8);
+          } else {
+            a[m][0] = a[m][1] = a[m][2] = a[m][3] = 0.f;
+          }
         }
       },
-      [&](int n, int ks, float* bb) {
-        const float* d0 = dpre + (8 * ks + 2 * q) * LD + c0 + 8 * n + g;
-        bb[0] = d0[0];
-        bb[1] = d0[LD];
+      [&](int ks, float (*bb)[2]) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const float* d0 = dpre + (8 * ks + 2 * q) * LD + c0 + 8 * n + g;
+          bb[n][0] = d0[0];
+          bb[n][1] = d0[LD];
+        }
       });
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
@@ -606,24 +838,6 @@ __device__ __forceinline__ void back_unit(int u, const float* __restrict__ Wg,
     }
   }
 }
-
-// A measurement build (-DBWD_PHASE_TIMERS) sums, per block, the clock
-// cycles thread 0 sees between the barriers that close each phase of a
-// tile: 0 feature load, 1 recompute, 2 head, 3 masks and bias sums,
-// 4 weight gradients and products back, 5 frame-time cotangent.
-#ifdef BWD_PHASE_TIMERS
-constexpr int N_PHASES = 6;
-constexpr int MAX_TIMED_BLOCKS = 1024;
-__device__ long long bwd_phase_cycles[MAX_TIMED_BLOCKS * N_PHASES];
-#define BWD_PHASE(k)                        \
-  if (tid == 0) {                           \
-    const long long now = clock64();        \
-    phase_cycles[k] += now - stamp;         \
-    stamp = now;                            \
-  }
-#else
-#define BWD_PHASE(k)
-#endif
 
 // input rows of layer i: F for layer 0, else h_{i-1} (+ F after a skip)
 __device__ __forceinline__ Rows layer_input(const Net& net, int i,
@@ -873,14 +1087,26 @@ Net make_net(int depth, int width, int feat, int do_skip, int bf16) {
     }
   }
   net.n_weights = w_off;
+  net.wf_planes = FWD_PRESPLIT && !bf16 ? 2 : 1;
+  for (int i = 0; i < depth; ++i) {
+    net.wf_off[i] = net.n_wf;
+    net.n_wf += fwd_m_units(width) * 16 * FWD_MT * net.wf_planes *
+                net.in_pad[i];
+  }
   return net;
 }
 
-// the forward's 16-row weight tiles, one per warp; the backward is
+// the forward's 32-row m-units, one per group of warps; the backward is
 // bounded by its shared memory only (fused_render_bwd_smem)
 bool supported(int depth, int width) {
   return depth >= 1 && depth + 1 <= MAX_LAYERS && width % 16 == 0 &&
-         width <= 16 * NWARPS;
+         width <= 16 * FWD_MT * FWD_MAX_MU;
+}
+
+size_t fwd_smem(const Net& net) {
+  return sizeof(float) *
+         ((size_t)(2 * net.width + net.feat_pad) * FWD_LD + FWD_BN +
+          net.width + net.feat_pad + fwd_m_units(net.width) * FWD_RING);
 }
 
 }  // namespace
@@ -894,6 +1120,14 @@ int fused_render_n_params(int depth, int width, int feat, int do_skip) {
   Net net = make_net(depth, width, feat, do_skip, 0);
   return net.n_weights + net.b_off[depth] + 1;
 }
+
+#ifdef FWD_PHASE_TIMERS
+int fused_render_fwd_phases(long long* out, int blocks) {
+  if (blocks > MAX_TIMED_BLOCKS) return (int)cudaErrorInvalidValue;
+  return (int)cudaMemcpyFromSymbol(out, fwd_phase_cycles,
+                                   sizeof(long long) * blocks * FWD_N_PHASES);
+}
+#endif
 
 #ifdef BWD_PHASE_TIMERS
 // the phase cycles of the last launch: (blocks, N_PHASES) into host memory
@@ -912,23 +1146,56 @@ size_t fused_render_bwd_smem(int depth, int width, int feat) {
                               LD + BN + depth * width + 1 + width + fp);
 }
 
+// floats of scratch the forward takes as `wf` (its weights in fragment
+// order, written by its pre-pass)
+int fused_render_fwd_scratch(int depth, int width, int feat, int do_skip) {
+  return make_net(depth, width, feat, do_skip, 0).n_wf;
+}
+
+// resident blocks per SM and threads per block of the forward
+int fused_render_fwd_occupancy(int depth, int width, int feat, int do_skip,
+                               int bf16, int* blocks, int* threads) {
+  Net net = make_net(depth, width, feat, do_skip, bf16);
+  auto kernel = bf16 ? fused_render_fwd_kernel<true>
+                     : fused_render_fwd_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)fwd_smem(net));
+  if (err != cudaSuccess) return (int)err;
+  *threads = FWD_THREADS;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel, FWD_THREADS, fwd_smem(net));
+}
+
 int fused_render_fwd(const float* t_eff, const float* coords,
                      const float* omega, const float* tg, const float* smask,
-                     const float* w, const float* bias, float* em,
+                     const float* w, const float* bias, float* wf, float* em,
                      float* fstash, int nt, int N, int depth, int width,
                      int feat, int do_skip, int deg, float inv_scale,
                      int bf16, void* stream) {
   if (!supported(depth, width) || N % BN != 0)
     return (int)cudaErrorInvalidValue;
   Net net = make_net(depth, width, feat, do_skip, bf16);
-  size_t smem = sizeof(float) * ((size_t)(width + net.feat_pad) * LD + BN);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_render_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  int device, sms;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(N / BN, nt);
-  fused_render_fwd_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      t_eff, coords, omega, tg, smask, w, bias, em, fstash, nt, N,
+  auto kernel = bf16 ? fused_render_fwd_kernel<true>
+                     : fused_render_fwd_kernel<false>;
+  const size_t smem = fwd_smem(net);
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  fused_render_fwd_pack_kernel<<<(net.n_wf + 255) / 256, 256, 0, s>>>(w, wf,
+                                                                      net);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = ((long long)nt * N + FWD_BN - 1) / FWD_BN;
+  kernel<<<(int)(tiles < sms ? tiles : sms), FWD_THREADS, smem, s>>>(
+      t_eff, coords, omega, tg, smask, w, wf, bias, em, fstash, nt, N,
       inv_scale, deg, net);
   return (int)cudaGetLastError();
 }

@@ -34,10 +34,12 @@ from bhnerf_tpu_torch.models.fields import (has_learned_injection,
                                             learned_t_injection, skip_after)
 from bhnerf_tpu_torch.ops import _build
 
-# sample-count multiple the kernels take (one tile of columns per block)
+# sample-count multiple the kernels take: the backward's tile of columns
+# (the forward walks 128-column tiles of the flat (frame, sample) list and
+# masks a short last tile itself)
 TILE_N = 64
 # the kernels take MLP widths that are multiples of 16 up to MAX_WIDTH
-# (the forward's one 16-row weight tile per warp); the backward is bounded
+# (the forward's four 32-row units of output); the backward is bounded
 # by its shared memory, which render_bwd checks against the card
 MAX_WIDTH = 128
 
@@ -169,14 +171,18 @@ def render_bwd_plain(g_em, em, F, omega, weights, biases, cfg, deg,
 # ---------------------------------------------------------------------------
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+FWD_ARGTYPES = [_P] * 10 + [_I] * 7 + [ctypes.c_float, _I, _P]
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load_library('fused_render')
-    lib.fused_render_fwd.argtypes = [_P] * 9 + [_I] * 7 + [ctypes.c_float,
-                                                           _I, _P]
+    lib.fused_render_fwd.argtypes = FWD_ARGTYPES
     lib.fused_render_fwd.restype = _I
+    lib.fused_render_fwd_scratch.argtypes = [_I] * 4
+    lib.fused_render_fwd_scratch.restype = _I
+    lib.fused_render_fwd_occupancy.argtypes = [_I] * 5 + [_P, _P]
+    lib.fused_render_fwd_occupancy.restype = _I
     lib.fused_render_bwd.argtypes = ([_P] * 7 + [_I] + [_P] * 3 + [_I] * 10
                                      + [_P])
     lib.fused_render_bwd.restype = _I
@@ -249,12 +255,18 @@ def render_fwd(t_eff, coords, omega, tg, smask, weights, biases, cfg, scale,
     bf16 = compute_dtype == 'bfloat16'
     _check_cuda_inputs([t_eff, coords, omega, tg, smask], cfg, n)
     w, b, _ = _pack_cuda(weights, biases, cfg, feat, bf16)
+    lib = _lib()
+    # scratch for the weights in the order the kernel's MMAs take them
+    wf = torch.empty(lib.fused_render_fwd_scratch(depth, width, feat,
+                                                  int(do_skip)),
+                     dtype=torch.float32, device=coords.device)
     em = torch.empty((nt, n), dtype=torch.float32, device=coords.device)
     f_store = (torch.empty((feat, nt * n), dtype=torch.float32,
                            device=coords.device) if stash else None)
-    err = _lib().fused_render_fwd(
+    err = lib.fused_render_fwd(
         _ptr(t_eff), _ptr(coords), _ptr(omega), _ptr(tg), _ptr(smask),
-        _ptr(w), _ptr(b), _ptr(em), _ptr(f_store), nt, n, depth, width,
+        _ptr(w), _ptr(b), _ptr(wf), _ptr(em), _ptr(f_store), nt, n, depth,
+        width,
         feat, int(do_skip), deg, float(np.float32(1.0 / scale)), int(bf16),
         _stream(coords.device))
     _build.check(err, 'fused_render_fwd')

@@ -247,11 +247,35 @@ def test_cuda_input_check_widths(width, ok):
 
 def test_kernel_limits_match_source():
     """TILE_N and MAX_WIDTH stay in step with fused_render.cu: the tile
-    is BN, and the forward takes one 16-row weight tile per warp."""
+    is the backward's BN (the forward's is a multiple of it and masks its
+    own tail), and the forward takes one 32-row unit of output per group
+    of warps."""
     src = (Path(fused.__file__).parent / 'csrc' / 'fused_render.cu') \
         .read_text()
     const = lambda name: int(re.search(
         rf'constexpr int {name} = (\d+);', src).group(1))
     assert const('BN') == fused.TILE_N
-    assert 'width <= 16 * NWARPS' in src
-    assert fused.MAX_WIDTH == 16 * (const('NTHREADS') // 32)
+    assert const('FWD_BN') % fused.TILE_N == 0
+    assert 'width <= 16 * FWD_MT * FWD_MAX_MU' in src
+    groups = const('FWD_THREADS') // 32 // (const('FWD_BN')
+                                            // (8 * const('FWD_NT')))
+    assert fused.MAX_WIDTH == 16 * const('FWD_MT') * groups
+
+
+def test_forward_argtypes_match_source():
+    """The ctypes signature the wrapper gives `fused_render_fwd` stays in
+    step with its C prototype in fused_render.cu: pointers (the scratch
+    for the reordered weights included) as void pointers, ints as ints,
+    the one float as a float."""
+    import ctypes
+    src = (Path(fused.__file__).parent / 'csrc' / 'fused_render.cu') \
+        .read_text()
+    proto = re.search(r'int fused_render_fwd\((.*?)\)\s*{', src, re.S).group(1)
+    kinds = []
+    for param in proto.split(','):
+        param = ' '.join(param.split())
+        kinds.append(ctypes.c_void_p if '*' in param
+                     else {'int': ctypes.c_int,
+                           'float': ctypes.c_float}[param.split()[0]])
+    assert kinds == fused.FWD_ARGTYPES
+    assert 'float* wf' in proto
