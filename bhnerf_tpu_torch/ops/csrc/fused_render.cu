@@ -7,7 +7,7 @@
 //     _render_bwd (fused.py:418-459); fused_render_reduce_kernel sums the
 //     backward's per-block partials.
 //
-// Per (sample, frame) column both kernels run the whole pipeline on chip:
+// Per (sample, frame) column the kernels run the whole pipeline on chip:
 // velocity warp (rotation about z by -Omega * max(t - t_inj, 0)), the
 // positional encoding [w | sin 2^i w | cos 2^i w] by the double-angle
 // recursion from one sin/cos, the MLP (ReLU, the encoded features F
@@ -24,10 +24,12 @@
 // is small by design: activations never leave shared memory, and a
 // column reads 5 floats and writes 1 (plus feat floats of stash).
 //
-// Forward: ~109 kFLOP per column. Every activation of a 64-column tile
-// stays in shared memory and the products run on the tensor cores (WMMA
-// m16n16k8 TF32, one 16-row weight tile per warp, fragments straight
-// from the L2-resident weights and from shared memory).
+// Forward: ~109 kFLOP per column, 134 GFLOP of TF32 per training step in
+// f32 mode: 0.27 ms at 495 TFLOP/s against 3.5 MB of device-memory
+// traffic, so it is compute-bound too. Every activation of a 128-column
+// tile stays in shared memory; the products are mma.sync m16n8k8 TF32 on
+// register fragments, a 32 x 32 unit per warp, with the weights staged
+// through shared memory ahead of use (see the forward section below).
 //
 // Backward: ~323 kFLOP per column (recompute 109k, weight gradients
 // 109k, products back through the weights 104k; 4x128, 21 features).
@@ -100,7 +102,6 @@ struct Net {
   int n_weights;            // padded weight floats (biases start here)
   int wf_off[MAX_LAYERS];   // offset of hidden layer i in the forward's
                             // fragment-ordered weights
-  int wf_planes;            // 2: TF32 hi and lo parts (f32 mode); else 1
   int n_wf;                 // floats of those
 };
 
@@ -144,12 +145,8 @@ template <bool SPLIT, bool FINITE = false>
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                                            uint32_t& lo) {
   if (SPLIT && FINITE) {
-#if FWD_ABLATE == 1
-    hi = lo = __float_as_uint(x);
-#else
     hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
     lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
-#endif
   } else if (SPLIT) {
     hi = tf32_bits(x);
     lo = tf32_bits(x - __uint_as_float(hi));
@@ -187,13 +184,6 @@ struct OpB {
 template <bool SPLIT>
 __device__ __forceinline__ void mma_step(float acc[4], const OpA& a,
                                          const OpB& b) {
-#if FWD_ABLATE == 2
-  if (SPLIT) {
-    mma_tf32(acc, a.lo, b.hi, acc);
-    mma_tf32(acc, a.hi, b.lo, acc);
-  }
-  mma_tf32(acc, a.hi, b.hi, acc);
-#else
   float s[4] = {0.f, 0.f, 0.f, 0.f};
   if (SPLIT) {
     mma_tf32(s, a.lo, b.hi, s);
@@ -202,7 +192,6 @@ __device__ __forceinline__ void mma_step(float acc[4], const OpA& a,
   mma_tf32(s, a.hi, b.hi, s);
 #pragma unroll
   for (int j = 0; j < 4; ++j) acc[j] += s[j];
-#endif
 }
 
 // acc[m][n] += sum over k-steps ks of A(m, ks) B(n, ks) for one unit.
@@ -210,29 +199,21 @@ __device__ __forceinline__ void mma_step(float acc[4], const OpA& a,
 // k-step ks, ldb(ks, b) its two B elements of each of the NT n-tiles.
 // Each element is split once and feeds all MT x NT tiles; the next
 // k-step's raw elements are loaded before this step's MMAs are issued.
-// With AW = 8 lda delivers A already split, four hi then four lo words.
-template <bool SPLIT, int MT, int NT, bool FINITE = false, int AW = 4,
-          int UNROLL = 1, typename LA, typename LB>
+template <bool SPLIT, int MT, int NT, bool FINITE = false, typename LA,
+          typename LB>
 __device__ __forceinline__ void unit_product(float acc[MT][NT][4],
                                              int ksteps, LA lda, LB ldb) {
-  float ra[MT][AW], rb[NT][2];
+  float ra[MT][4], rb[NT][2];
   lda(0, ra);
   ldb(0, rb);
-#pragma unroll UNROLL
   for (int ks = 0; ks < ksteps; ++ks) {
     OpA a[MT];
     OpB b[NT];
 #pragma unroll
     for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (AW == 8) {
-          a[m].hi[j] = __float_as_uint(ra[m][j]);
-          a[m].lo[j] = __float_as_uint(ra[m][4 + j]);
-        } else {
-          split_tf32<SPLIT, FINITE>(ra[m][j], a[m].hi[j], a[m].lo[j]);
-        }
-      }
+      for (int j = 0; j < 4; ++j)
+        split_tf32<SPLIT, FINITE>(ra[m][j], a[m].hi[j], a[m].lo[j]);
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
@@ -306,14 +287,18 @@ __device__ long long bwd_phase_cycles[MAX_TIMED_BLOCKS * N_PHASES];
 // m-unit and take one 32-column unit each. What the design does about the
 // matmul chain:
 //   * a pre-pass kernel lays the weights out in MMA fragment order once
-//     per launch, so a 32-row x 32-k chunk of a layer is 4 KB of
-//     contiguous memory and a lane's four A elements are one 16-byte
+//     per launch, so a 32-row x 64-k chunk of a layer is 8 KB of
+//     contiguous memory (chunks of 32 or 16 k where many feature rows
+//     leave less shared memory) and a lane's four A elements are one 16-byte
 //     shared-memory load without bank conflicts;
 //   * each group streams its chunks through a ring of FWD_STAGES buffers
-//     with cp.async, FWD_STAGES - 1 chunks ahead of the products and
-//     across layer and tile boundaries, so no product waits on L2 and
-//     each weight is read from L2 once per 128 columns; the ring is
-//     guarded by one named barrier of the group's 128 threads per chunk;
+//     with cp.async, one chunk ahead of the products and across layer
+//     and tile boundaries, so no product waits on L2 and each weight is
+//     read from L2 once per 128 columns; the ring is guarded by one named
+//     barrier of the group's 128 threads per chunk;
+//   * operands are split to TF32 hi/lo once per load with integer
+//     rounding (sm_90a emulates cvt.rna.tf32 with twice the
+//     instructions);
 //   * MMA column g of tile n stands for tile column 4 g + n, which makes
 //     a lane's B elements for the unit's four tiles one 16-byte load (the
 //     row stride, 8 mod 32 words, keeps it conflict-free) and its outputs
@@ -329,27 +314,8 @@ constexpr int FWD_MT = 2;                             // a warp's unit:
 constexpr int FWD_NT = 4;                             // 32 x 32
 constexpr int FWD_GROUP = FWD_BN / (8 * FWD_NT);      // warps per m-unit
 constexpr int FWD_MAX_MU = FWD_THREADS / 32 / FWD_GROUP;
-// Switches of the measurement builds (timing only where FWD_ABLATE is
-// set: 1 no split, 2 no per-k-step add, 3 no activation-fragment loads,
-// 4 no chunk barrier and copies, 5 linear activation loads, 6 no weight
-// loads; their results are wrong)
-#ifndef FWD_KC
-#define FWD_KC 32
-#endif
-#ifndef FWD_UNROLL
-#define FWD_UNROLL 1
-#endif
-#ifndef FWD_ABLATE
-#define FWD_ABLATE 0
-#endif
-constexpr int FWD_CHUNK = 16 * FWD_MT * FWD_KC;       // weights per chunk
-constexpr int FWD_RING = 4096;                        // floats per group
-#ifndef FWD_PRESPLIT
-#define FWD_PRESPLIT false
-#endif
-#ifndef FWD_FINITE_SPLIT
-#define FWD_FINITE_SPLIT true
-#endif
+constexpr int FWD_KC = 64;        // k per chunk, halved until a block fits
+constexpr int FWD_STAGES = 2;     // chunks in a ring
 
 using FwdRows = RowsT<FWD_LD>;
 
@@ -378,30 +344,24 @@ __device__ __forceinline__ void named_barrier(int id, int count) {
 }
 
 // The hidden layers' weights in fragment order: layer i at wf_off[i] as
-// [m-unit][k-step][m-tile][plane][lane][4], the lane's A fragment of
-// m16n8k8 (rows past the width are zero). With two planes the first holds
-// the TF32 hi parts and the second the lo parts, so the products split no
-// weight. w is the padded (out, in_pad) layout.
+// [m-unit][k-step][m-tile][lane][4], the lane's A fragment of m16n8k8
+// (rows past the width are zero). w is the padded (out, in_pad) layout.
 __global__ void fused_render_fwd_pack_kernel(const float* __restrict__ w,
                                              float* __restrict__ wf,
                                              Net net) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= net.n_wf) return;
-  const int PL = net.wf_planes;
   int i = 0;
   while (i + 1 < net.depth && idx >= net.wf_off[i + 1]) ++i;
   const int Kp = net.in_pad[i];
   const int local = idx - net.wf_off[i];
-  const int mu = local / (16 * FWD_MT * PL * Kp);
-  const int rem = local % (16 * FWD_MT * PL * Kp);
-  const int ks = rem / (128 * FWD_MT * PL), m = rem / (128 * PL) % FWD_MT;
-  const int plane = rem / 128 % PL, lane = rem / 4 % 32, e = rem % 4;
+  const int mu = local / (16 * FWD_MT * Kp);
+  const int rem = local % (16 * FWD_MT * Kp);
+  const int ks = rem / (128 * FWD_MT), m = rem / 128 % FWD_MT;
+  const int lane = rem / 4 % 32, e = rem % 4;
   const int r = 16 * (FWD_MT * mu + m) + lane / 4 + 8 * (e & 1);
   const int k = 8 * ks + lane % 4 + 4 * (e >> 1);
-  const float x = r < net.width ? w[net.w_off[i] + r * Kp + k] : 0.f;
-  uint32_t hi = __float_as_uint(x), lo = 0u;
-  if (PL == 2) split_tf32<true>(x, hi, lo);
-  wf[idx] = __uint_as_float(plane == 0 ? hi : lo);
+  wf[idx] = r < net.width ? w[net.w_off[i] + r * Kp + k] : 0.f;
 }
 
 template <bool BF16>
@@ -415,13 +375,12 @@ fused_render_fwd_kernel(const float* __restrict__ t_eff,
                         const float* __restrict__ wf,
                         const float* __restrict__ bias,
                         float* __restrict__ em, float* __restrict__ fstash,
-                        int nt, int N, float inv_scale, int deg, Net net) {
+                        int nt, int N, float inv_scale, int deg, int kc_max,
+                        Net net) {
   constexpr bool SPLIT = !BF16;
-  // planes of the staged weights, floats of a chunk, chunks in the ring
-  constexpr int PL = SPLIT && FWD_PRESPLIT ? 2 : 1;
-  constexpr int CHUNK = PL * FWD_CHUNK, STAGES = FWD_RING / CHUNK;
   extern __shared__ __align__(128) float smem[];
   const int W = net.width, Fd = net.feat, FP = net.feat_pad, D = net.depth;
+  const int chunk = 16 * FWD_MT * kc_max;       // floats of a ring stage
   // two activation buffers of W rows: layer i writes act(i)
   auto act = [&](int i) { return smem + (i % 2) * W * FWD_LD; };
   float* Fs = smem + 2 * W * FWD_LD;            // FP rows
@@ -435,7 +394,7 @@ fused_render_fwd_kernel(const float* __restrict__ t_eff,
   const int c0 = warp % FWD_GROUP * 8 * FWD_NT; // columns [c0, c0 + 32)
   const bool active = mu < fwd_m_units(W);
   const int gtid = tid % (32 * FWD_GROUP);
-  float* stages = ring + mu * FWD_RING;
+  float* stages = ring + mu * FWD_STAGES * chunk;
   const size_t cols = (size_t)nt * N;
   const int n_tiles = (int)((cols + FWD_BN - 1) / FWD_BN);
 
@@ -445,7 +404,7 @@ fused_render_fwd_kernel(const float* __restrict__ t_eff,
   // count in step).
   int chunks_per_tile = 0;
   for (int i = 0; i < D; ++i)
-    chunks_per_tile += (net.in_pad[i] + FWD_KC - 1) / FWD_KC;
+    chunks_per_tile += (net.in_pad[i] + kc_max - 1) / kc_max;
   const int my_tiles = (int)blockIdx.x < n_tiles
       ? (n_tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
   int to_issue = my_tiles * chunks_per_tile;
@@ -453,24 +412,24 @@ fused_render_fwd_kernel(const float* __restrict__ t_eff,
   auto issue = [&]() {
     if (to_issue > 0) {
       const int Kp = net.in_pad[p_layer];
-      const int kc = min(FWD_KC, Kp - p_k0);
+      const int kc = min(kc_max, Kp - p_k0);
       const float* src = wf + net.wf_off[p_layer] +
-                         16 * FWD_MT * PL * ((size_t)mu * Kp + p_k0);
-      float* dst = stages + p_stage * CHUNK;
-      for (int v = gtid; v < 4 * FWD_MT * PL * kc; v += 32 * FWD_GROUP)
+                         16 * FWD_MT * ((size_t)mu * Kp + p_k0);
+      float* dst = stages + p_stage * chunk;
+      for (int v = gtid; v < 4 * FWD_MT * kc; v += 32 * FWD_GROUP)
         cp_async16(dst + 4 * v, src + 4 * v);
       --to_issue;
-      p_k0 += FWD_KC;
+      p_k0 += kc_max;
       if (p_k0 >= Kp) {
         p_k0 = 0;
         if (++p_layer == D) p_layer = 0;
       }
     }
-    p_stage = (p_stage + 1) % STAGES;
+    p_stage = (p_stage + 1) % FWD_STAGES;
     cp_async_commit();
   };
   if (active)
-    for (int s = 0; s < STAGES - 1; ++s) issue();
+    for (int s = 0; s < FWD_STAGES - 1; ++s) issue();
 
   for (int idx = tid; idx < (FP - Fd) * FWD_BN; idx += FWD_THREADS)
     Fs[(Fd + idx / FWD_BN) * FWD_LD + idx % FWD_BN] = 0.f;   // padding rows
@@ -483,10 +442,10 @@ fused_render_fwd_kernel(const float* __restrict__ t_eff,
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     // prologue: velocity warp and positional encoding, one (column,
     // coordinate) pair per thread (mirrors _prologue, reference
-    // fused.py:84-121); the last 128 threads compute the masks. Columns
-    // past the end repeat the last one and are never stored.
-    {
-      const int c = tid % FWD_BN, j = tid / FWD_BN;
+    // fused.py:84-121); a fourth set of threads computes the masks.
+    // Columns past the end repeat the last one and are never stored.
+    for (int p = tid; p < 4 * FWD_BN; p += FWD_THREADS) {
+      const int c = p % FWD_BN, j = p / FWD_BN;
       const size_t col = (size_t)tile * FWD_BN + c;
       const bool live = col < cols;
       const size_t cc = live ? col : cols - 1;
@@ -537,43 +496,28 @@ fused_render_fwd_kernel(const float* __restrict__ t_eff,
         const FwdRows X = i == 0 ? FwdRows{Fs, FP, nullptr}
                                  : FwdRows{act(i - 1), W, Fs};
         float acc[FWD_MT][FWD_NT][4] = {};
-        for (int k0 = 0; k0 < Kp; k0 += FWD_KC) {
+        for (int k0 = 0; k0 < Kp; k0 += kc_max) {
           // chunk landed (this thread's copies, then the group's), and
           // the group is done with the stage the next request overwrites
-#if FWD_ABLATE != 4
-          cp_async_wait<STAGES - 2>();
+          cp_async_wait<FWD_STAGES - 2>();
           named_barrier(1 + mu, 32 * FWD_GROUP);
           issue();
-#endif
           FWD_PHASE(1);
-          const float* A = stages + c_stage * CHUNK + 4 * lane;
-          c_stage = (c_stage + 1) % STAGES;
-          unit_product<SPLIT, FWD_MT, FWD_NT, FWD_FINITE_SPLIT, 4 * PL, FWD_UNROLL>(
-              acc, min(FWD_KC, Kp - k0) / 8,
-              [&](int ks, float (*a)[4 * PL]) {
-#if FWD_ABLATE == 6
-                if (k0 + ks > 0) return;
-#endif
+          const float* A = stages + c_stage * chunk + 4 * lane;
+          c_stage = (c_stage + 1) % FWD_STAGES;
+          unit_product<SPLIT, FWD_MT, FWD_NT, true>(
+              acc, min(kc_max, Kp - k0) / 8,
+              [&](int ks, float (*a)[4]) {
 #pragma unroll
-                for (int m = 0; m < FWD_MT; ++m)
-#pragma unroll
-                  for (int p = 0; p < PL; ++p) {
-                    const float4 v = *reinterpret_cast<const float4*>(
-                        A + 128 * (PL * (FWD_MT * ks + m) + p));
-                    a[m][4 * p] = v.x; a[m][4 * p + 1] = v.y;
-                    a[m][4 * p + 2] = v.z; a[m][4 * p + 3] = v.w;
-                  }
+                for (int m = 0; m < FWD_MT; ++m) {
+                  const float4 v = *reinterpret_cast<const float4*>(
+                      A + 128 * (FWD_MT * ks + m));
+                  a[m][0] = v.x; a[m][1] = v.y; a[m][2] = v.z; a[m][3] = v.w;
+                }
               },
               [&](int ks, float (*b)[2]) {
-#if FWD_ABLATE == 3
-                if (k0 + ks > 0) return;
-#endif
                 // rows k and k + 4 of one 8-row step share their source
-#if FWD_ABLATE == 5
-                const float* x = X.row(k0 + 8 * ks) + 4 * lane;
-#else
                 const float* x = X.row(k0 + 8 * ks + q) + c0 + 4 * g;
-#endif
                 const float4 x0 = *reinterpret_cast<const float4*>(x);
                 const float4 x4 =
                     *reinterpret_cast<const float4*>(x + 4 * FWD_LD);
@@ -610,8 +554,8 @@ fused_render_fwd_kernel(const float* __restrict__ t_eff,
     }
 
     // head: four threads per column, each a quarter of the input rows
-    {
-      const int c = tid / 4, part = tid % 4;
+    for (int p = tid; p < 4 * FWD_BN; p += FWD_THREADS) {
+      const int c = p / 4, part = p % 4;
       const FwdRows X{act(D - 1), W, Fs};
       float s = 0.f;
 #pragma unroll 4
@@ -1087,11 +1031,9 @@ Net make_net(int depth, int width, int feat, int do_skip, int bf16) {
     }
   }
   net.n_weights = w_off;
-  net.wf_planes = FWD_PRESPLIT && !bf16 ? 2 : 1;
   for (int i = 0; i < depth; ++i) {
     net.wf_off[i] = net.n_wf;
-    net.n_wf += fwd_m_units(width) * 16 * FWD_MT * net.wf_planes *
-                net.in_pad[i];
+    net.n_wf += fwd_m_units(width) * 16 * FWD_MT * net.in_pad[i];
   }
   return net;
 }
@@ -1103,10 +1045,35 @@ bool supported(int depth, int width) {
          width <= 16 * FWD_MT * FWD_MAX_MU;
 }
 
-size_t fwd_smem(const Net& net) {
+size_t fwd_smem(const Net& net, int kc) {
   return sizeof(float) *
          ((size_t)(2 * net.width + net.feat_pad) * FWD_LD + FWD_BN +
-          net.width + net.feat_pad + fwd_m_units(net.width) * FWD_RING);
+          net.width + net.feat_pad +
+          fwd_m_units(net.width) * FWD_STAGES * 16 * FWD_MT * kc);
+}
+
+// The forward's launch shape on the current device: the largest chunk
+// (kc) whose block fits the shared memory, and the SM count.
+struct FwdPlan {
+  int kc, sms;
+  size_t smem;
+};
+
+cudaError_t fwd_plan(const Net& net, FwdPlan* plan) {
+  int device, limit;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&plan->sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  for (plan->kc = FWD_KC; plan->kc >= 16; plan->kc /= 2) {
+    plan->smem = fwd_smem(net, plan->kc);
+    if (plan->smem <= (size_t)limit) return cudaSuccess;
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1156,15 +1123,17 @@ int fused_render_fwd_scratch(int depth, int width, int feat, int do_skip) {
 int fused_render_fwd_occupancy(int depth, int width, int feat, int do_skip,
                                int bf16, int* blocks, int* threads) {
   Net net = make_net(depth, width, feat, do_skip, bf16);
+  FwdPlan plan;
+  cudaError_t err = fwd_plan(net, &plan);
+  if (err != cudaSuccess) return (int)err;
   auto kernel = bf16 ? fused_render_fwd_kernel<true>
                      : fused_render_fwd_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)fwd_smem(net));
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
   if (err != cudaSuccess) return (int)err;
   *threads = FWD_THREADS;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, kernel, FWD_THREADS, fwd_smem(net));
+      blocks, kernel, FWD_THREADS, plan.smem);
 }
 
 int fused_render_fwd(const float* t_eff, const float* coords,
@@ -1176,17 +1145,13 @@ int fused_render_fwd(const float* t_eff, const float* coords,
   if (!supported(depth, width) || N % BN != 0)
     return (int)cudaErrorInvalidValue;
   Net net = make_net(depth, width, feat, do_skip, bf16);
-  int device, sms;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
+  FwdPlan plan;
+  cudaError_t err = fwd_plan(net, &plan);
   if (err != cudaSuccess) return (int)err;
   auto kernel = bf16 ? fused_render_fwd_kernel<true>
                      : fused_render_fwd_kernel<false>;
-  const size_t smem = fwd_smem(net);
   err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   fused_render_fwd_pack_kernel<<<(net.n_wf + 255) / 256, 256, 0, s>>>(w, wf,
@@ -1194,9 +1159,9 @@ int fused_render_fwd(const float* t_eff, const float* coords,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long tiles = ((long long)nt * N + FWD_BN - 1) / FWD_BN;
-  kernel<<<(int)(tiles < sms ? tiles : sms), FWD_THREADS, smem, s>>>(
-      t_eff, coords, omega, tg, smask, w, wf, bias, em, fstash, nt, N,
-      inv_scale, deg, net);
+  kernel<<<(int)(tiles < plan.sms ? tiles : plan.sms), FWD_THREADS,
+           plan.smem, s>>>(t_eff, coords, omega, tg, smask, w, wf, bias, em,
+                           fstash, nt, N, inv_scale, deg, plan.kc, net);
   return (int)cudaGetLastError();
 }
 

@@ -266,9 +266,8 @@ def render_fwd(t_eff, coords, omega, tg, smask, weights, biases, cfg, scale,
     err = lib.fused_render_fwd(
         _ptr(t_eff), _ptr(coords), _ptr(omega), _ptr(tg), _ptr(smask),
         _ptr(w), _ptr(b), _ptr(wf), _ptr(em), _ptr(f_store), nt, n, depth,
-        width,
-        feat, int(do_skip), deg, float(np.float32(1.0 / scale)), int(bf16),
-        _stream(coords.device))
+        width, feat, int(do_skip), deg, float(np.float32(1.0 / scale)),
+        int(bf16), _stream(coords.device))
     _build.check(err, 'fused_render_fwd')
     render_fwd.launches += 1
     return (em, f_store) if stash else em

@@ -13,16 +13,21 @@ Phases (any failure raises and exits non-zero):
   3. host precompute: f64 geodesics (64x64 rays x 100 samples), ray
      constants, domain compaction (the 'gather' layout);
   4. kernels vs plain versions at the compacted sample count N and a
-     6-frame batch: forward in f32 and bf16, backward with and without
-     the frame-time cotangent; max errors and milliseconds of both;
+     6-frame batch: forward in f32 and bf16 (with and without the stash,
+     and at a sample count that is no multiple of its 128-column tile),
+     its occupancy, backward with and without the frame-time cotangent;
+     max errors and milliseconds of both;
   5. main path: TrainStep.image(fused=True) + Optimizer.run for 20 steps
      of batch 6 on the card, with launch counters proving that every step
-     went through both kernels, finite and decreasing losses, steps/s.
+     went through both kernels, finite and decreasing losses, steps/s;
+  6. torch.profiler over 10 more steps: the device's busy share of a step
+     and each kernel's share of the device time.
 The line before the last is the JSON kernel summary; the last line is
 {"ok": true, "device": {...}}.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -145,8 +150,10 @@ def host_precompute(device):
 def kernel_checks(predictor, crt, t_frames, device):
     """Both kernels against their plain versions on the card at the main
     path's shapes. Returns the JSON entries (launches filled in later)."""
+    import ctypes
+
     import torch
-    from bhnerf_tpu_torch.ops import fused
+    from bhnerf_tpu_torch.ops import _build, fused
 
     rng = np.random.default_rng(0)
     n = crt.coords.shape[1]
@@ -181,6 +188,27 @@ def kernel_checks(predictor, crt, t_frames, device):
                                                           'float32'))
     fwd_stash_ms = cuda_ms(lambda: fused.render_fwd(*common, 'float32',
                                                     stash=True))
+    # the forward walks 128-column tiles of the flat (frame, sample) list:
+    # a sample count that is a multiple of 64 only, over 5 frames, makes
+    # tiles straddle frames and leaves the last one short
+    odd = (t_eff[:5].contiguous(),
+           *(x[:, :n - 64].contiguous() for x in (coords, omega, tg, smask)),
+           *common[5:])
+    em_o = fused.render_fwd(*odd, 'float32')
+    em_op = fused.render_fwd_plain(*odd, 'float32')
+    torch.cuda.synchronize()
+    odd_err = float((em_o - em_op).abs().max())
+    log(f'fwd f32 at N = {n - 64} (not a multiple of 128), 5 frames: '
+        f'max|em_kernel - em_plain| = {odd_err:.3e} (atol 2e-6, rtol 1e-4)')
+    if not torch.allclose(em_o, em_op, atol=2e-6, rtol=1e-4):
+        raise RuntimeError('forward kernel disagrees at a short last tile')
+    occ = [ctypes.c_int(), ctypes.c_int()]
+    _build.check(fused._lib().fused_render_fwd_occupancy(
+        *cfg[:2], f_p.shape[0], int(cfg[2]), 0, ctypes.byref(occ[0]),
+        ctypes.byref(occ[1])), 'fused_render_fwd_occupancy')
+    fwd_warps = occ[0].value * occ[1].value // 32
+    log(f'fwd occupancy: {occ[0].value} block(s) of {occ[1].value} threads '
+        f'per SM = {fwd_warps} warps per SM')
     n_params = sum(w.numel() + b.numel() for w, b in zip(weights, biases))
     fwd_bound = bound('fwd', cfg, f_p.shape[0], BATCH, n, n_params,
                       'float32')
@@ -249,6 +277,8 @@ def kernel_checks(predictor, crt, t_frames, device):
         zip(gp[0] + gp[1], gk[0] + gk[1]))
     loss_rel = abs(loss_b - loss_ref) / loss_ref
     b_ms = cuda_ms(lambda: fused.render_fwd(*common, 'bfloat16'))
+    bs_ms = cuda_ms(lambda: fused.render_fwd(*common, 'bfloat16',
+                                             stash=True))
     bp_ms = cuda_ms(lambda: fused.render_fwd_plain(*common, 'bfloat16'))
     bb_ms = cuda_ms(lambda: fused.render_bwd(
         g_b, em_b, f_b, omega, weights, biases, cfg, deg, 'bfloat16', False))
@@ -256,8 +286,8 @@ def kernel_checks(predictor, crt, t_frames, device):
         g_b, em_b, f_b, omega, weights, biases, cfg, deg, 'bfloat16', False))
     log(f'bf16 vs f32 plain: loss rel diff {loss_rel:.3e} (< 0.02), min '
         f'per-matrix gradient cosine {cos:.6f} (> 0.99); fwd kernel '
-        f'{b_ms:.3f} ms, plain {bp_ms:.3f} ms; bwd kernel {bb_ms:.3f} ms, '
-        f'plain {bbp_ms:.3f} ms')
+        f'{b_ms:.3f} ms (with stash {bs_ms:.3f} ms), plain {bp_ms:.3f} ms; '
+        f'bwd kernel {bb_ms:.3f} ms, plain {bbp_ms:.3f} ms')
     if loss_rel > 0.02 or cos < 0.99:
         raise RuntimeError('bf16 kernels stray from the f32 reference')
 
@@ -270,7 +300,8 @@ def kernel_checks(predictor, crt, t_frames, device):
          'launches_per_step': 0, 'max_abs_err': fwd_err, 'ms': fwd_ms,
          'plain_ms': fwd_plain_ms, 'bound_ms': fwd_bound[0],
          'bound_by': fwd_bound[1], 'library_ms': None,
-         'bf16_ms': b_ms, 'bf16_plain_ms': bp_ms},
+         'stash_ms': fwd_stash_ms, 'bf16_ms': b_ms, 'bf16_stash_ms': bs_ms,
+         'bf16_plain_ms': bp_ms, 'warps_per_sm': fwd_warps},
         {'name': 'fused_render_bwd', 'route': 'cuda',
          'source': 'bhnerf_tpu_torch/ops/csrc/fused_render.cu',
          'replaces': 'bhnerf_tpu/ops/fused.py:198', 'launches': 0,
@@ -331,7 +362,42 @@ def train_main_path(predictor, crt, t_frames, device):
     if tuple(images.shape) != (BATCH, NUM_RAYS, NUM_RAYS) or \
             not bool(torch.isfinite(images).all()):
         raise RuntimeError(f'bad images {tuple(images.shape)}')
-    return launches
+    return launches, opt, train_step, 1e3 / steps_per_s
+
+
+def profile_main_path(opt, train_step, crt, step_ms, steps=10):
+    """torch.profiler (device events) over `steps` more steps of the main
+    path: the device's busy share of a step and each kernel's share of
+    the device time. The profiler slows the host, so the busy share is
+    also given against the unprofiled step time `step_ms`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from bhnerf_tpu_torch.train.optimizer import LogFn
+
+    opt.num_iters = steps
+    sync = LogFn(lambda o: float(o.loss))   # one step per synchronise
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        opt.run(BATCH, train_step, crt, log_fns=[sync], verbose=False)
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    # device rows only (host ops carry the time of what they launch); the
+    # Adam range overlaps Adam's own kernels
+    rows = [(e.key, e.self_device_time_total / 1e3 / steps)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and 'Optimizer.step' not in e.key]
+    busy_ms = sum(ms for _, ms in rows)
+    if busy_ms <= 0.0:
+        raise RuntimeError('torch.profiler recorded no device time')
+    log(f'profile: {steps} steps, device busy {busy_ms:.3f} ms per step = '
+        f'{busy_ms / wall_ms:.3f} of the profiled {wall_ms:.3f} ms step, '
+        f'{busy_ms / step_ms:.3f} of the unprofiled {step_ms:.3f} ms step '
+        f'(idle {1 - busy_ms / step_ms:.3f})')
+    for key, ms in sorted(rows, key=lambda r: -r[1])[:8]:
+        log(f'  {100 * ms / busy_ms:5.1f}% {ms:.3f} ms/step  {key[:90]}')
 
 
 def main():
@@ -358,12 +424,18 @@ def main():
     ptxas = _build.build_dir('fused_render') / 'fused_render.ptxas.log'
     if ptxas.exists():
         for line in ptxas.read_text().splitlines():
-            if 'registers' in line or 'spill' in line:
+            entry = re.search(r'(fused_render_[a-z_]+_kernel)(ILb1)?', line)
+            if 'Compiling entry' in line and entry:
+                log(f'  ptxas: {entry.group(1)}'
+                    f'{" (bf16)" if entry.group(2) else ""}')
+            elif 'registers' in line or 'spill' in line:
                 log(f'  ptxas: {line.strip()}')
 
     predictor, crt, t_frames = host_precompute(device)
     kernels = kernel_checks(predictor, crt, t_frames, device)
-    launches = train_main_path(predictor, crt, t_frames, device)
+    launches, opt, train_step, step_ms = train_main_path(
+        predictor, crt, t_frames, device)
+    profile_main_path(opt, train_step, crt, step_ms)
     for entry, count in zip(kernels, launches):
         entry['launches'] = count
         entry['launches_per_step'] = count / STEPS

@@ -90,3 +90,108 @@ def test_kernels_match_plain_on_card(cuda_device, compute_dtype, width,
         assert all(torch.equal(a, b) for a, b in
                    zip(gk[0] + gk[1] + [gk[2]], again[0] + again[1]
                        + [again[2]]))
+
+
+def _forward_inputs(device, rng, width, depth, nt, n, compute_dtype, deg=3):
+    pred = NeRFPredictor(scale=8.0, net_depth=depth, net_width=width,
+                         posenc_deg=deg, compute_dtype=compute_dtype)
+    params = pred.init_params(generator=torch.Generator().manual_seed(0),
+                              device=device)
+    weights, biases = [w.detach() for w in fused.pack_params(params)[0]], \
+        [b.detach() + 0.3 for b in fused.pack_params(params)[1]]
+    # lift the head so the emission is macroscopic
+    biases[-1] = biases[-1] + 8.0
+    put = lambda x: torch.as_tensor(np.asarray(x, np.float32)).to(
+        device).contiguous()
+    return (put(rng.uniform(0, 50, (nt, 1))), put(rng.uniform(-8, 8, (3, n))),
+            put(rng.uniform(0.01, 0.1, (1, n))),
+            put(rng.uniform(-30, 30, (1, n))), put(rng.random((1, n)) > 0.2),
+            weights, biases, (depth, width, True), 8.0, deg, compute_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('compute_dtype,width,depth,nt,n', [
+    # one short tile; whole tiles; a short last tile in one frame and
+    # across frames (N a multiple of 64 but not of the forward's 128)
+    ('float32', 128, 4, 1, 64), ('float32', 128, 4, 2, 256),
+    ('float32', 128, 4, 1, 192), ('float32', 128, 4, 3, 320),
+    ('bfloat16', 128, 4, 3, 320),
+    # widths that leave groups of warps, or half of a 32-row unit, idle
+    ('float32', 16, 4, 3, 192), ('float32', 48, 4, 3, 192),
+    ('float32', 64, 4, 3, 192), ('bfloat16', 48, 4, 3, 192),
+    # the skip input feeds the head (depth 2) or layer 5 of 8
+    ('float32', 128, 2, 3, 192), ('float32', 64, 8, 3, 192),
+    ('bfloat16', 64, 8, 3, 192),
+    # more tiles than SMs: blocks walk several tiles, the weight stream
+    # wraps around
+    ('float32', 128, 4, 6, 8192)])
+def test_forward_matches_plain_on_card(cuda_device, compute_dtype, width,
+                                       depth, nt, n):
+    """Forward kernel against its plain version: emission atol 2e-6 /
+    rtol 1e-4 and F to 1e-5 in f32 (2e-3 / 2e-2 and one bf16 step in
+    bf16, where a value on a rounding boundary may round either way);
+    the emission is bitwise the same with and without the stash and on
+    a repeated call."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _forward_inputs(cuda_device, np.random.default_rng(1), width,
+                           depth, nt, n, compute_dtype)
+    em_k, f_k = fused.render_fwd(*args, stash=True)
+    em_p, f_p = fused.render_fwd_plain(*args, stash=True)
+    torch.cuda.synchronize()
+    assert float(em_p.max()) > 0.05
+    tol, f_tol = (dict(atol=2e-6, rtol=1e-4), 1e-5) \
+        if compute_dtype == 'float32' else (dict(atol=2e-3, rtol=2e-2),
+                                            2.0 ** -7)
+    np.testing.assert_allclose(em_k.cpu().numpy(), em_p.cpu().numpy(), **tol)
+    np.testing.assert_allclose(f_k.cpu().numpy(), f_p.cpu().numpy(),
+                               atol=f_tol, rtol=0)
+    assert torch.equal(fused.render_fwd(*args), em_k)
+    again = fused.render_fwd(*args, stash=True)
+    assert torch.equal(again[0], em_k) and torch.equal(again[1], f_k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('compute_dtype', ['float32', 'bfloat16'])
+def test_forward_masks_are_exact_on_card(cuda_device, compute_dtype):
+    """Padding samples (t_geos_rel = -1e30) and columns with smask = 0
+    give exact zeros; every other column a positive emission."""
+    nt, n = 3, 320
+    args = list(_forward_inputs(cuda_device, np.random.default_rng(2), 128,
+                                4, nt, n, compute_dtype))
+    tg, smask = args[3].clone(), args[4].clone()
+    tg[:, :] = 40.0              # every real sample valid in every frame
+    tg[:, 250:] = -1e30          # padding samples
+    smask[:, :] = 1.0
+    smask[:, 5:90:7] = 0.0
+    args[3], args[4] = tg, smask
+    em = fused.render_fwd(*args)
+    torch.cuda.synchronize()
+    dead = (tg < -1e29) | (smask == 0.0)
+    assert bool((em[:, dead[0]] == 0.0).all())
+    assert bool((em[:, ~dead[0]] > 0.0).all())
+
+
+@pytest.mark.cuda
+def test_forward_many_feature_rows_on_card(cuda_device):
+    """Posenc degree 8 (51 features, 64 padded rows) at width 128 leaves
+    the forward less shared memory: it stages its weights in smaller
+    chunks and still matches the plain version."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _forward_inputs(cuda_device, np.random.default_rng(3), 128, 4, 3,
+                           320, 'float32', deg=8)
+    em_k, f_k = fused.render_fwd(*args, stash=True)
+    torch.cuda.synchronize()
+    t_eff, coords, omega, tg, smask, weights, biases, cfg, scale, deg, _ = args
+    f_p, mask = fused._prologue_plain(t_eff, coords, omega, tg, smask, scale,
+                                      deg, False)
+    # the double-angle recursion doubles the difference between the two
+    # sin/cos implementations with every degree
+    np.testing.assert_allclose(f_k.cpu().numpy(), f_p.cpu().numpy(),
+                               atol=2e-4, rtol=0)
+    # the MLP on the kernel's own features, so the emission is held to the
+    # usual tolerance whatever the trig's difference
+    out = fused._forward_chain_plain(f_k, weights, biases, cfg, False)[1]
+    em_p = torch.sigmoid(out - 10.0).reshape(em_k.shape) * mask
+    assert float(em_p.max()) > 0.05
+    np.testing.assert_allclose(em_k.cpu().numpy(), em_p.cpu().numpy(),
+                               atol=2e-6, rtol=1e-4)
