@@ -1,10 +1,13 @@
-"""The velocity warp and the supervision-domain mask.
+"""The velocity warp, the supervision-domain mask and Stokes helpers.
 
-PyTorch counterpart of the main-path subset of `bhnerf_tpu/emission.py`
-(:101-222): the rigid-rotation velocity warp that maps every frame back
-to the canonical t0 frame, and the emission-shell mask. The synthetic
-emission generators and the full forward movie renderer are not ported
-yet.
+PyTorch counterpart of a subset of `bhnerf_tpu/emission.py`: the
+rigid-rotation velocity warp that maps every frame back to the canonical
+t0 frame and the emission-shell mask (:101-222), the per-sample Stokes
+factors of the dense render (:228), and the host-side Stokes helpers
+`normalize_stokes` and `rotate_evpa` (:360-397), which work on numpy
+arrays like the rest of the once-per-configuration precompute. The
+synthetic emission generators and the full forward movie renderer are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -103,3 +106,53 @@ def fill_unsupervised_emission(emission, coords, rmin=0.0, rmax=np.inf,
     (reference emission.py:343-374). coords: stacked [x, y, z], axis 0."""
     keep = domain_mask(coords, rmin, rmax, z_width)
     return torch.where(keep, emission, torch.full_like(emission, fill_value))
+
+
+def apply_stokes_factors(emission, J):
+    """Multiply per-sample Stokes factors J ((nstokes, ...sample dims))
+    onto emission ((*frame_dims, ...sample dims)), inserting the Stokes
+    axis after the frame dims (reference emission.py:228-240). A scalar
+    or 0-d J is a plain intensity scale."""
+    if isinstance(J, torch.Tensor) and J.ndim > 0:
+        nt_dims = emission.ndim - 3
+        return J.reshape((1,) * nt_dims + tuple(J.shape)) \
+            * emission.unsqueeze(nt_dims)
+    if float(J) == 1.0:
+        return emission
+    return emission * float(J)
+
+
+def normalize_stokes(movie, I_flux, P_flux, V_flux=None):
+    """Normalize a Stokes movie to target fluxes (reference
+    emission.py:360-373). movie: numpy array (nt, nstokes, ny, nx)."""
+    movie = np.asarray(movie)
+    dolp = np.sqrt(np.sum(movie[:, 1:3].sum(axis=(-1, -2)) ** 2,
+                          axis=1)).mean()
+    parts = [movie[:, 0:1] * (I_flux / movie[:, 0].sum(axis=(-1, -2)).mean()),
+             movie[:, 1:3] * (P_flux / dolp)]
+    if V_flux is not None and movie.shape[1] > 3:
+        parts.append(movie[:, 3:4]
+                     * (V_flux / movie[:, 3].sum(axis=(-1, -2)).mean()))
+    elif movie.shape[1] > 3:
+        parts.append(movie[:, 3:])
+    return np.concatenate(parts, axis=1)
+
+
+def rotate_evpa(stokes, angle, axis=0):
+    """Rotate the EVPA of a Stokes vector by `angle` (reference
+    emission.py:376-397): e^{2i angle}(Q + iU) in real arithmetic.
+    stokes: numpy array whose `axis` holds (Q, U), (I, Q, U) or
+    (I, Q, U, V)."""
+    stokes = np.asarray(stokes)
+    n = stokes.shape[axis]
+    c, s = np.cos(2 * angle), np.sin(2 * angle)
+    take = lambda i: np.take(stokes, i, axis)
+    if n not in (2, 3, 4):
+        raise ValueError(f'stokes axis size {n} not supported')
+    q, u = (take(0), take(1)) if n == 2 else (take(1), take(2))
+    parts = [c * q - s * u, s * q + c * u]
+    if n >= 3:
+        parts.insert(0, take(0))
+    if n == 4:
+        parts.append(take(3))
+    return np.stack(parts, axis=axis)

@@ -48,6 +48,22 @@ class Geodesics:
                'alpha', 'beta', 'lam', 'eta', 'tau_final')
     _AUX = ('spin', 'inc', 'M', 'E', 'r_o')
 
+    @property
+    def num_alpha(self):
+        return self.r.shape[0]
+
+    @property
+    def num_beta(self):
+        return self.r.shape[1]
+
+    @property
+    def ngeo(self):
+        return self.r.shape[2]
+
+    @property
+    def npix(self):
+        return self.num_alpha * self.num_beta
+
     # cartesian coordinates (reference emission.py:271)
     @property
     def x(self):
@@ -71,6 +87,17 @@ class Geodesics:
         return self.r**2 - 2.0 * self.r + self.spin**2
 
     @property
+    def Xi(self):
+        return ((self.r**2 + self.spin**2) ** 2
+                - self.spin**2 * self.Delta * np.sin(self.theta) ** 2)
+
+    @property
+    def omega(self):
+        """Frame-dragging angular velocity of the zero-angular-momentum
+        observers."""
+        return 2.0 * self.spin * self.r / self.Xi
+
+    @property
     def R(self):
         lam = self.lam[..., None]
         eta = self.eta[..., None]
@@ -84,6 +111,20 @@ class Geodesics:
         cos2 = np.cos(self.theta) ** 2
         sin2 = np.sin(self.theta) ** 2
         return eta + self.spin**2 * cos2 - lam**2 * cos2 / sin2
+
+    @property
+    def affine(self):
+        """Affine parameter: cumulative trapezoid of Sigma over Mino time."""
+        sig = self.Sigma
+        dm = np.diff(self.mino, axis=-1)
+        seg = 0.5 * (sig[..., 1:] + sig[..., :-1]) * dm
+        return np.concatenate(
+            [np.zeros_like(sig[..., :1]), np.cumsum(seg, axis=-1)], axis=-1)
+
+    @property
+    def coords(self):
+        """Stacked [x, y, z] (axis 0), the NeRF sampling coordinates."""
+        return np.stack([self.x, self.y, self.z], axis=0)
 
     def save(self, path):
         """Serialize to .npz (the reference's format, dataset.py:151-156)."""
@@ -106,13 +147,36 @@ class Geodesics:
                 / (self.r ** 1.5 + self.spin * np.sqrt(self.M)))
 
 
-def image_plane_geos(spin, inclination, alpha_range, beta_range, ngeo=100,
-                     num_alpha=64, num_beta=64, distance=1000.0, E=1.0, M=1.0,
-                     tau_max=4.0, n_fine=8192, substeps=8) -> Geodesics:
-    """Trace Kerr geodesics for a regular image-plane grid
-    (reference bhnerf/kgeo.py:6-63), host float64."""
+def subpixel_jittered_axes(alpha_range, beta_range, num_alpha, num_beta,
+                           rng):
+    """One sub-pixel-randomized draw of the screen grid axes: per-axis
+    uniform jitter within a pixel (reference kgeo.py:51-55). `rng` is a
+    np.random.Generator; the alpha draw comes first, then the beta draw,
+    so a seed gives the grid that the JAX package draws from it."""
     alpha_1d = np.linspace(*alpha_range, num_alpha)
     beta_1d = np.linspace(*beta_range, num_beta)
+    psize_alpha = (alpha_range[1] - alpha_range[0]) / (num_alpha - 1)
+    psize_beta = (beta_range[1] - beta_range[0]) / (num_beta - 1)
+    alpha_1d = alpha_1d + (rng.random(num_alpha) - 0.5) * psize_alpha
+    beta_1d = beta_1d + (rng.random(num_beta) - 0.5) * psize_beta
+    return alpha_1d, beta_1d
+
+
+def image_plane_geos(spin, inclination, alpha_range, beta_range, ngeo=100,
+                     num_alpha=64, num_beta=64, distance=1000.0, E=1.0, M=1.0,
+                     randomize_subpixel_rays=False, rng=None, tau_max=4.0,
+                     n_fine=8192, substeps=8) -> Geodesics:
+    """Trace Kerr geodesics for an image-plane grid (reference
+    bhnerf/kgeo.py:6-63), host float64. With randomize_subpixel_rays the
+    grid axes are jittered within a pixel from `rng` (a
+    np.random.Generator; a fresh one when None)."""
+    if randomize_subpixel_rays:
+        rng = np.random.default_rng() if rng is None else rng
+        alpha_1d, beta_1d = subpixel_jittered_axes(
+            alpha_range, beta_range, num_alpha, num_beta, rng)
+    else:
+        alpha_1d = np.linspace(*alpha_range, num_alpha)
+        beta_1d = np.linspace(*beta_range, num_beta)
     alpha, beta = np.meshgrid(alpha_1d, beta_1d, indexing='ij')
     return trace_geodesics(alpha, beta, spin, inclination, ngeo=ngeo,
                            distance=distance, E=E, M=M, tau_max=tau_max,

@@ -1,12 +1,14 @@
 """Training orchestration: the Optimizer loop, TrainStep, frame batching.
 
-PyTorch counterpart of the main-path subset of
-`bhnerf_tpu/train/optimizer.py`: `Optimizer` with its per-step `run` loop
-and non-finite guard (:90-200), `TrainStep.image` (:417-441),
-`TemporalBatchedArgs` (:483-575) and `LogFn` (:577). Frame batches are
-drawn from the Optimizer's explicit `torch.Generator`; the full frame
-tensors live on the training device and each step selects its batch
-there, so a step uploads only its indices.
+PyTorch counterpart of `bhnerf_tpu/train/optimizer.py` without its
+scan-chunked loop, checkpoints and EHT step: `total_movie_loss` (:19-46),
+`Optimizer` with its per-step `run` loop and non-finite guard (:90-200),
+the composable `TrainStep` over one set of ray constants or a sub-pixel
+ensemble of them (:322-441), `TemporalBatchedArgs` (:483-575) and `LogFn`
+(:577). Frame batches and, for an ensemble, the variant of each gradient
+step are drawn on the host from the Optimizer's explicit
+`torch.Generator`; the full frame tensors live on the training device and
+each step selects its batch there, so a step uploads only its indices.
 """
 from __future__ import annotations
 
@@ -20,6 +22,30 @@ from bhnerf_tpu_torch.train import state as state_lib
 from bhnerf_tpu_torch.train import step as step_lib
 
 
+def _as_list(x):
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+def total_movie_loss(batchsize, state, train_step, raytracing_args,
+                     return_frames=False):
+    """Aggregate test loss over all movie frames in batchsize chunks
+    (reference optimization.py:14-66); the last chunk holds the frames
+    left over."""
+    nt = train_step.args[0].num_frames
+    frames, total_loss = [], 0.0
+    for start in range(0, nt, batchsize):
+        inds = np.arange(start, min(start + batchsize, nt))
+        loss, _, images = train_step(state, raytracing_args, inds,
+                                     update_state=False)
+        total_loss += float(loss)
+        if return_frames:
+            frames.append(images.cpu().numpy())
+    output = total_loss / nt
+    if return_frames:
+        output = (output, np.concatenate(frames))
+    return output
+
+
 class Optimizer:
     """Gradient-descent loop (reference optimization.py:68-143)."""
 
@@ -28,19 +54,19 @@ class Optimizer:
         self.init_step = 0
         self.num_iters = hparams['num_iters']
         self.loss = np.inf
+        self.variant = 0
         self.seed = hparams.get('seed', 1)
         self.predictor = predictor
-        # one explicit generator draws the initial weights and then every
-        # frame batch
+        # one explicit generator draws the initial weights, then every
+        # frame batch and ensemble variant
         self.generator = torch.Generator().manual_seed(self.seed)
-        if hparams.get('lr_inject') is not None:
-            raise NotImplementedError('lr_inject is not ported yet')
         params = predictor.init_params(generator=self.generator,
                                        device=device)
         tx = state_lib.make_optimizer(
             num_iters=self.num_iters,
             lr_init=hparams.get('lr_init', 1e-4),
-            lr_final=hparams.get('lr_final', 1e-6))
+            lr_final=hparams.get('lr_final', 1e-6),
+            lr_inject=hparams.get('lr_inject'))
         self.state = state_lib.TrainState.create(params, tx)
 
     def log(self):
@@ -51,18 +77,25 @@ class Optimizer:
             verbose=True, nan_check_period=1000):
         """Training loop (reference optimization.py:123-139) with a
         periodic non-finite-loss guard (checking every step would force a
-        host sync per step)."""
+        host sync per step). raytracing_args may be a list, a sub-pixel
+        ray ensemble: each step then trains on one variant drawn from the
+        generator."""
         self.init_step = self.state.step + 1
         self.final_step = self.init_step + self.num_iters
         self.log_fns = list(log_fns)
         self.train_step = train_step
         self.raytracing_args = raytracing_args
         report = max(1, self.num_iters // 10)
+        num_variants = len(_as_list(raytracing_args))
 
         for self.step in range(self.init_step, self.final_step):
-            batch = train_step.args.sample(batchsize, self.generator)
+            batch = train_step.args[0].sample(batchsize, self.generator)
+            self.variant = (int(torch.randint(num_variants, (),
+                                              generator=self.generator))
+                            if num_variants > 1 else 0)
             self.loss, self.state, images = train_step(
-                self.state, raytracing_args, indices=batch)
+                self.state, raytracing_args, indices=batch,
+                variant=self.variant)
             if (nan_check_period and self.step % nan_check_period == 0
                     and not torch.isfinite(self.loss).all()):
                 warnings.warn(f'non-finite loss at step {self.step}; '
@@ -75,37 +108,90 @@ class Optimizer:
 
 
 class TrainStep:
-    """One image loss: its frame args, grad/test fns and scale
-    (reference optimization.py:145-268, without composition)."""
+    """Composable container of (dtype, args, grad/test fns, scale), one
+    entry per loss (reference optimization.py:145-268)."""
 
-    def __init__(self, args, grad_fn, test_fn, scale):
-        if args.t_units != units.hr:
+    def __init__(self, dtype, args, grad_fn, test_fn, scale):
+        self.dtype = _as_list(dtype)
+        self.args = _as_list(args)
+        self.grad_fn = _as_list(grad_fn)
+        self.test_fn = _as_list(test_fn)
+        self.scale = _as_list(scale)
+        if any(arg.t_units != units.hr for arg in self.args):
             raise ValueError('only hr units supported')
-        self.args = args
-        self.grad_fn = grad_fn
-        self.test_fn = test_fn
-        self.scale = scale
+        self.num_losses = len(self.dtype)
+        if {len(self.args), len(self.grad_fn), len(self.test_fn),
+                len(self.scale)} != {self.num_losses}:
+            raise ValueError('input list sizes are not equal')
+        if len({a.num_frames for a in self.args}) > 1:
+            # frame-batch indices are drawn once per step and applied to
+            # every loss
+            raise ValueError(
+                'composed losses must share the frame count: got '
+                f'{[a.num_frames for a in self.args]} frames per loss')
 
-    def __call__(self, state, raytracing_args, indices, update_state=True):
-        fn = self.grad_fn if update_state else self.test_fn
-        args = self.args.device_args
-        idx = torch.as_tensor(np.asarray(indices), dtype=torch.int64,
-                              device=args[0].device)
-        return fn(state, *args, idx, raytracing_args, self.scale)
+    def __call__(self, state, raytracing_args, indices, update_state=True,
+                 variant=None):
+        """One step of every loss. raytracing_args: one set of ray
+        constants or a list of them (a sub-pixel ray ensemble). A
+        gradient step trains on the one variant numbered `variant`
+        (required for an ensemble of several); a test step returns the
+        mean loss and images over all variants
+        (reference optimization.py:157-187)."""
+        rt_list = _as_list(raytracing_args)
+        if update_state:
+            fns = self.grad_fn
+            if variant is None:
+                if len(rt_list) > 1:
+                    raise ValueError(
+                        'a gradient step over an ensemble needs `variant`, '
+                        'the index of the ray constants to train on')
+                variant = 0
+            rt_list = [rt_list[variant]]
+        else:
+            fns = self.test_fn
+
+        total_loss, total_images = 0.0, 0.0
+        idx = torch.as_tensor(np.asarray(indices), dtype=torch.int64)
+        for rt in rt_list:
+            for i in range(self.num_losses):
+                args = self.args[i].device_args
+                loss, state, images = fns[i](
+                    state, *args, idx.to(args[0].device), rt, self.scale[i])
+                # accumulated on the device: no synchronise per step
+                total_loss = total_loss + loss / len(rt_list)
+                total_images = total_images + images / len(rt_list)
+        return total_loss, state, total_images
+
+    def __add__(self, other):
+        return TrainStep(self.dtype + other.dtype, self.args + other.args,
+                         self.grad_fn + other.grad_fn,
+                         self.test_fn + other.test_fn,
+                         self.scale + other.scale)
 
     @classmethod
     def image(cls, t_frames, target, predictor, sigma=1.0, offset=0.0,
-              scale=1.0, dtype='full', fused=False, device='cuda'):
-        """Image-plane training step (reference optimization.py:189-217).
-        fused=True routes the render through the fused CUDA kernels."""
+              scale=1.0, dtype='full', fused=False, tv_scale=0.0,
+              tv_fov=None, tv_resolution=32, device='cuda'):
+        """Image-plane ('full') or lightcurve ('lc') training step
+        (reference optimization.py:189-217). sigma and offset broadcast
+        against the target, so a (3,) sigma serves an (nt, 3) polarized
+        lightcurve. fused=True routes the render through the fused CUDA
+        kernels; tv_scale > 0 adds a total-variation penalty on the
+        canonical-frame volume (step.tv_loss)."""
         target = np.asarray(target)
         sigma = sigma * np.ones_like(target)
         offset = offset * np.ones_like(target)
         args = TemporalBatchedArgs(t_frames, [target, sigma, offset],
                                    device=device)
-        grad_fn, test_fn = step_lib.make_step_fns(predictor, dtype=dtype,
-                                                  fused=fused)
-        return cls(args, grad_fn, test_fn, scale)
+        grad_fn, test_fn = step_lib.make_step_fns(
+            predictor, dtype=dtype, fused=fused, tv_scale=tv_scale,
+            tv_fov=tv_fov, tv_resolution=tv_resolution)
+        return cls(dtype, args, grad_fn, test_fn, scale)
+
+    @property
+    def t_units(self):
+        return self.args[0].t_units
 
 
 class TemporalBatchedArgs:
@@ -143,6 +229,10 @@ class TemporalBatchedArgs:
     @property
     def t_units(self):
         return self._t_unit
+
+    @property
+    def t_start_obs(self):
+        return self.t_frames[0]
 
 
 class LogFn:

@@ -1,17 +1,24 @@
 """Ray constants, domain compaction, image loss and the gradient step.
 
-PyTorch counterpart of the main-path subset of
-`bhnerf_tpu/train/step.py`:
+PyTorch counterpart of `bhnerf_tpu/train/step.py` without its mesh
+sharding, scan-chunked steps and EHT losses:
 
 * `RayTracingArgs` freezes the geodesic constants into float32 tensors on
   the training device; `t_geos - t_injection` is subtracted in float64 on
   the host before the cast, so the float32 tensors carry O(1..100) values
   instead of O(r_o) (reference step.py:87-88);
 * `CompactRayArgs` keeps only the in-domain samples (~17% of them in the
-  production configuration) in the 'gather' layout, built once on the
-  host; the per-pixel reduction re-gathers them into groups of
-  `_REDUCE_G` and sums (`_GroupedReduce`, whose backward is the gather
-  adjoint);
+  production configuration), built once on the host in one of two
+  layouts. 'gather' packs the samples tight and the per-pixel reduction
+  re-gathers them into groups of `_REDUCE_G` and sums (`_GroupedReduce`,
+  whose backward is the gather adjoint). 'native' lays the samples
+  directly into the per-pixel padded group slots, with inert filler
+  samples in the empty slots, so the reduction is a strided sum with no
+  gather (`_NativeReduce`);
+* polarized ray constants carry per-sample Stokes factors `J`; they fold
+  into one weight row per Stokes component, outside the fused kernels;
+* the 'lc' loss takes the lightcurve straight from the compact samples
+  as `em @ weights^T`, sharing one emission pass with the aux images;
 * `make_step_fns` returns the grad/test steps over full device-resident
   frame tensors plus explicit frame indices.
 """
@@ -41,7 +48,7 @@ class RayTracingArgs:
 
     coords: Any      # (3, na, nb, ngeo) f32
     Omega: Any       # scalar or (na, nb, ngeo)
-    J: float         # intensity scale (single Stokes component)
+    J: Any           # scalar intensity scale or (nstokes, na, nb, ngeo)
     g: Any           # (na, nb, ngeo) doppler
     dtau: Any        # (na, nb, ngeo)
     Sigma: Any       # (na, nb, ngeo)
@@ -50,6 +57,10 @@ class RayTracingArgs:
     t_start_obs: float = 0.0   # in t_units
     t_to_M: float = 1.0        # multiply (t - t_start_obs) -> M units
     t_units: Any = None
+
+    @property
+    def num_stokes(self):
+        return self.J.shape[0] if isinstance(self.J, torch.Tensor) else 1
 
     def frame_times_M(self, t_frames):
         """Observation times -> M units relative to t_start_obs."""
@@ -60,11 +71,8 @@ def raytracing_args(geos, Omega, t_injection, t_start_obs, J=1.0,
                     M=consts.sgra_mass, device='cuda', dtype=torch.float32):
     """Freeze geodesics into tensors on `device`
     (reference network.py:850-894). t_start_obs: units.Quantity or float
-    hours. J: a scalar intensity scale (polarized Stokes factors are not
-    ported yet)."""
-    if not np.isscalar(J):
-        raise NotImplementedError('polarized (per-sample J) transport is '
-                                  'not ported yet')
+    hours. J: a scalar intensity scale, or per-sample Stokes factors
+    (nstokes, na, nb, ngeo)."""
     umu = gr.azimuthal_velocity_vector(geos, np.asarray(Omega))
     g = gr.doppler_factor(geos, umu)
 
@@ -80,7 +88,7 @@ def raytracing_args(geos, Omega, t_injection, t_start_obs, J=1.0,
     return RayTracingArgs(
         coords=as_t(np.stack([geos.x, geos.y, geos.z], axis=0)),
         Omega=as_t(Omega),
-        J=float(J),
+        J=float(J) if np.isscalar(J) else as_t(J),
         g=as_t(g),
         dtau=as_t(geos.dtau),
         Sigma=as_t(geos.Sigma),
@@ -94,7 +102,7 @@ def raytracing_args(geos, Omega, t_injection, t_start_obs, J=1.0,
 
 @dataclasses.dataclass
 class CompactRayArgs:
-    """Domain-compacted ray constants in the 'gather' layout.
+    """Domain-compacted ray constants.
 
     Only the samples inside the supervised emission shell
     (rmin/rmax/z_width) are kept; images match RayTracingArgs up to float
@@ -102,18 +110,25 @@ class CompactRayArgs:
 
     coords: Any        # (3, N_pad) in-domain sample positions
     Omega: Any         # scalar or (N_pad,)
-    weights: Any       # (1, N_pad) = J * g^2 * dtau * Sigma
+    weights: Any       # (nstokes, N_pad) = J * g^2 * dtau * Sigma
     t_geos_rel: Any    # (N_pad,)
-    pixel_ids: Any     # (N_pad,) int64, sorted; padding rows -> npix
+    pixel_ids: Any     # (N_pad,) int64; padding rows -> npix
     t_injection: Any   # scalar f32 offset
-    # grouped-reduction layout; None -> plain segment sum
+    # reduction layout: all three -> 'gather' (grouped reduction); only
+    # red_group_ids -> 'native' (samples already sit in the k-major group
+    # slots); none -> plain segment sum
     red_gather: Any = None     # (N_red,) int64 into the sample axis
-    red_weights: Any = None    # (1, N_red); 0 on filler slots
+    red_weights: Any = None    # (nstokes, N_red); 0 on filler slots
     red_group_ids: Any = None  # (N_red // G,) int64, sorted; pads -> npix
     image_shape: tuple = ()
+    polarized: bool = False
     t_start_obs: float = 0.0
     t_to_M: float = 1.0
     t_units: Any = None
+
+    @property
+    def num_stokes(self):
+        return self.weights.shape[0]
 
     @property
     def npix(self):
@@ -126,7 +141,8 @@ class CompactRayArgs:
 def _grouped_layout(pixel_ids, W, npix, G):
     """Grouped-reduction layout over one contiguous sample block
     (reference step.py:178-201): gather indices, weights with 0 on filler
-    slots, and the sorted pixel id of each group."""
+    slots, the sorted pixel id of each group, and which slots hold a
+    sample (groups not yet padded)."""
     counts = np.bincount(pixel_ids, minlength=npix)
     nz = np.flatnonzero(counts)
     c_nz = counts[nz]
@@ -142,21 +158,58 @@ def _grouped_layout(pixel_ids, W, npix, G):
                           seg_starts[pix_of_slot] + slot_in_pix, 0)
     red_weights = np.where(valid_slot[None], W[:, red_gather], 0.0)
     red_group_ids = np.repeat(nz, ng)
-    return red_gather, red_weights, red_group_ids
+    return red_gather, red_weights, red_group_ids, valid_slot
 
 
-def compact_raytracing_args(rt: RayTracingArgs,
-                            predictor) -> CompactRayArgs:
-    """Gather the in-domain subset of a RayTracingArgs (host-side, once)
-    in the reference's single-device 'gather' layout.
+def _pad_grouped(red_gather, red_weights, red_group_ids, valid_slot,
+                 n_groups, npix, G):
+    """Pad a grouped layout to exactly n_groups groups
+    (reference step.py:204-219)."""
+    g_pad = n_groups - red_group_ids.size
+    if g_pad < 0:
+        raise ValueError(f'layout has {red_group_ids.size} groups, more '
+                         f'than the {n_groups} asked for')
+    if g_pad:
+        red_gather = np.concatenate(
+            [red_gather, np.zeros(g_pad * G, np.int64)])
+        red_weights = np.concatenate(
+            [red_weights, np.zeros((red_weights.shape[0], g_pad * G),
+                                   red_weights.dtype)], axis=1)
+        red_group_ids = np.concatenate(
+            [red_group_ids, np.full(g_pad, npix, np.int64)])
+        valid_slot = np.concatenate(
+            [valid_slot, np.zeros(g_pad * G, bool)])
+    return red_gather, red_weights, red_group_ids, valid_slot
+
+
+def compact_raytracing_args(rt: RayTracingArgs, predictor, tile=None,
+                            pad_local_n=None, pad_groups=None,
+                            layout='auto') -> CompactRayArgs:
+    """Gather the in-domain subset of a RayTracingArgs (host-side, once).
 
     predictor supplies rmin/rmax/z_width; J/g/dtau/Sigma fold into one
-    per-sample weight. The sample count is padded to the fused kernels'
-    TILE_N; padding samples never become valid.
+    per-sample weight per Stokes component. The sample count is padded to
+    `tile` (the fused kernels' TILE_N by default); padding samples never
+    become valid.
+
+    pad_local_n / pad_groups force minimum sample / group counts, so that
+    several sub-pixel-ray variants come out identically shaped
+    (compact_ensemble_args).
+
+    layout selects the reduction strategy (reference step.py:249-258):
+    * 'gather': samples packed tight; the reduce re-gathers them into
+      per-pixel groups (red_gather/red_weights).
+    * 'native': samples laid out directly in the per-pixel padded group
+      slots (about a fifth of them inert filler that still goes through
+      the MLP), so the reduce needs no gather and its backward gathers
+      per group.
+    * 'auto': 'native' for multi-Stokes weights, 'gather' otherwise.
     """
-    tile = fused_lib.TILE_N
+    if tile is None:
+        tile = fused_lib.TILE_N
     device = rt.coords.device
-    coords = rt.coords.cpu().numpy()          # (3, na, nb, ngeo)
+    host = lambda x: x.cpu().numpy()
+    coords = host(rt.coords)                  # (3, na, nb, ngeo)
     na, nb, ngeo = coords.shape[1:]
     domain = emission_lib.domain_mask(
         torch.as_tensor(coords), predictor.rmin, predictor.rmax,
@@ -165,50 +218,113 @@ def compact_raytracing_args(rt: RayTracingArgs,
     idx = np.flatnonzero(domain.reshape(-1))
     G = _REDUCE_G
     npix = na * nb
-    host = lambda x: x.cpu().numpy()
     w_all = (host(rt.g) ** 2 * host(rt.dtau)
              * host(rt.Sigma)).reshape(-1)[idx]
-    W_all = (w_all * rt.J)[None]
+    polarized = isinstance(rt.J, torch.Tensor)
+    if polarized:
+        W_all = host(rt.J).reshape(rt.J.shape[0], -1)[:, idx] * w_all
+    else:
+        W_all = (w_all * rt.J)[None]
+
+    if layout == 'auto':
+        layout = 'native' if W_all.shape[0] > 1 else 'gather'
+    if layout not in ('native', 'gather'):
+        raise ValueError(f'unknown layout {layout!r}')
 
     pix = idx // ngeo
-    red_gather, red_weights, red_group_ids = _grouped_layout(
-        pix, W_all, npix, G)
-    # group count padded to a multiple of 8 (reference step.py:305-308)
-    n_groups = (red_group_ids.size + 7) // 8 * 8
-    g_pad = n_groups - red_group_ids.size
-    red_gather = np.concatenate([red_gather, np.zeros(g_pad * G, np.int64)])
-    red_weights = np.concatenate(
-        [red_weights, np.zeros((red_weights.shape[0], g_pad * G))], axis=1)
-    red_group_ids = np.concatenate([red_group_ids,
-                                    np.full(g_pad, npix, np.int64)])
-    local_n = (idx.size + tile - 1) // tile * tile
-    pad = local_n - idx.size
-
-    def padded(x, fill=0.0):
-        return np.concatenate(
-            [x, np.full((*x.shape[:-1], pad), fill, x.dtype)], axis=-1)
+    lay = _grouped_layout(pix, W_all, npix, G)
+    # group count: a multiple of 8; in the 'native' layout groups * G is
+    # the sample count and must also be a multiple of the tile
+    n_groups = lay[2].size
+    gmult = max(8, tile // G) if layout == 'native' else 8
+    if pad_groups is not None:
+        n_groups = max(n_groups, int(pad_groups))
+    n_groups = (n_groups + gmult - 1) // gmult * gmult
+    rg, rw, rgid, valid = _pad_grouped(*lay, n_groups, npix, G)
 
     Omega = rt.Omega
     omega_flat = None if Omega.ndim == 0 else host(Omega).reshape(-1)
+    tg_flat = host(rt.t_geos_rel).reshape(-1)
+    coords_flat = coords.reshape(3, -1)
+
+    if layout == 'native':
+        # samples live directly in the padded group slots: the reduce is
+        # a strided sum with no gather; filler slots are inert (never
+        # valid in time, zero weight). Slots are k-major (slot = k *
+        # n_groups + g), the reference's order (step.py:327-350)
+        def kmajor(a):
+            return (a.reshape(*a.shape[:-1], n_groups, G)
+                    .swapaxes(-1, -2).reshape(*a.shape[:-1], -1))
+
+        slot_idx = idx[rg]
+        cols = dict(
+            coords=kmajor(np.where(valid[None], coords_flat[:, slot_idx],
+                                   0.0)),
+            Omega=(None if omega_flat is None else kmajor(
+                np.where(valid, omega_flat[slot_idx], 0.0))),
+            weights=kmajor(rw),
+            tg=kmajor(np.where(valid, tg_flat[slot_idx], -1e30)),
+            pix=np.tile(rgid, G))
+        rg = rw = None
+    else:
+        local_n = (idx.size + tile - 1) // tile * tile
+        if pad_local_n is not None:
+            local_n = max(local_n, int(pad_local_n))
+        pad = local_n - idx.size
+
+        def padded(x, fill=0.0):
+            return np.concatenate(
+                [x, np.full((*x.shape[:-1], pad), fill, x.dtype)], axis=-1)
+
+        cols = dict(
+            coords=padded(coords_flat[:, idx]),
+            Omega=None if omega_flat is None else padded(omega_flat[idx]),
+            weights=padded(W_all),
+            # padding gets a never-valid time so it never activates
+            tg=padded(tg_flat[idx], fill=-1e30),
+            pix=padded(pix.astype(np.int64), fill=npix))
+
     f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32)).to(device)
     i64 = lambda x: torch.as_tensor(np.asarray(x, np.int64)).to(device)
     return CompactRayArgs(
-        coords=f32(padded(coords.reshape(3, -1)[:, idx])),
-        Omega=(Omega if omega_flat is None else f32(padded(omega_flat[idx]))),
-        weights=f32(padded(W_all)),
-        # padding gets a never-valid time so it never activates
-        t_geos_rel=f32(padded(host(rt.t_geos_rel).reshape(-1)[idx],
-                              fill=-1e30)),
-        pixel_ids=i64(padded(pix.astype(np.int64), fill=npix)),
+        coords=f32(cols['coords']),
+        Omega=Omega if omega_flat is None else f32(cols['Omega']),
+        weights=f32(cols['weights']),
+        t_geos_rel=f32(cols['tg']),
+        pixel_ids=i64(cols['pix']),
         t_injection=rt.t_injection.clone(),
-        red_gather=i64(red_gather),
-        red_weights=f32(red_weights),
-        red_group_ids=i64(red_group_ids),
+        red_gather=None if rg is None else i64(rg),
+        red_weights=None if rw is None else f32(rw),
+        red_group_ids=i64(rgid),
         image_shape=(na, nb),
+        polarized=polarized,
         t_start_obs=rt.t_start_obs,
         t_to_M=rt.t_to_M,
         t_units=rt.t_units,
     )
+
+
+def compact_ensemble_args(rt_list, predictor, **kwargs):
+    """Domain-compact a sub-pixel-ray ensemble into identically shaped
+    CompactRayArgs (reference step.py:411-437). Different sub-pixel
+    offsets give different in-domain sample counts; every variant is
+    padded to the ensemble's largest sample and group counts. Returns a
+    list."""
+    rt_list = list(rt_list) if isinstance(rt_list, (list, tuple)) \
+        else [rt_list]
+    built = [compact_raytracing_args(rt, predictor, **kwargs)
+             for rt in rt_list]
+    shape = lambda c: (c.coords.shape[-1], c.red_group_ids.shape[-1])
+    if len({shape(c) for c in built}) > 1:
+        # re-compact only the variants below the ensemble maximum (the
+        # pads are lower bounds, so the largest are already final)
+        ln = max(shape(c)[0] for c in built)
+        ng = max(shape(c)[1] for c in built)
+        built = [c if shape(c) == (ln, ng)
+                 else compact_raytracing_args(rt, predictor, pad_local_n=ln,
+                                              pad_groups=ng, **kwargs)
+                 for c, rt in zip(built, rt_list)]
+    return built
 
 
 # ---------------------------------------------------------------------------
@@ -253,10 +369,45 @@ def _segment_reduce(npix, em, pixel_ids, weights):
     return out.index_add(2, pixel_ids, contrib)[..., :npix]
 
 
+def _native_reduce_impl(npix, em, weights, group_ids):
+    F, ns = em.shape[0], weights.shape[0]
+    contrib = em[:, None, :] * weights               # (F, ns, N)
+    # k-major slots: a group's elements are strided by n_groups
+    gsum = contrib.reshape(F, ns, _REDUCE_G, -1).sum(2)
+    out = torch.zeros((F, ns, npix + 1), dtype=em.dtype, device=em.device)
+    out.index_add_(2, group_ids, gsum)
+    return out[..., :npix]
+
+
+class _NativeReduce(torch.autograd.Function):
+    """Per-pixel weighted sums for the 'native' layout: strided group
+    sums with no gather, then the small sorted scatter. The backward
+    gathers d_img per group and broadcasts within the group (reference
+    step.py:533-569)."""
+
+    @staticmethod
+    def forward(ctx, em, npix, weights, group_ids):
+        ctx.save_for_backward(weights, group_ids)
+        return _native_reduce_impl(npix, em, weights, group_ids)
+
+    @staticmethod
+    def backward(ctx, d_img):
+        weights, group_ids = ctx.saved_tensors
+        dpad = torch.nn.functional.pad(d_img, (0, 1))   # padding pixel
+        dg = dpad.index_select(2, group_ids)            # (F, ns, n_groups)
+        w4 = weights.reshape(weights.shape[0], _REDUCE_G, -1)
+        d_em = torch.einsum('fsg,skg->fkg', dg, w4)
+        return d_em.reshape(d_img.shape[0], -1), None, None, None
+
+
 def _reduce_to_images(em, crt: CompactRayArgs):
-    """em (F, N) -> images (F, 1, npix)."""
-    if crt.red_gather is None:
+    """Per-pixel weighted sums of compact samples: em (F, N) -> images
+    (F, nstokes, npix), by the layout the args carry."""
+    if crt.red_gather is None and crt.red_group_ids is None:
         return _segment_reduce(crt.npix, em, crt.pixel_ids, crt.weights)
+    if crt.red_gather is None:
+        return _NativeReduce.apply(em, crt.npix, crt.weights,
+                                   crt.red_group_ids)
     return _GroupedReduce.apply(em, crt.npix, crt.red_gather,
                                 crt.red_weights, crt.red_group_ids,
                                 crt.pixel_ids, crt.weights)
@@ -292,21 +443,63 @@ def _compact_emission(params, predictor, t_frames_M, crt: CompactRayArgs,
     return emission.reshape(-1, n)
 
 
+def _shape_images(images, t_shape, crt):
+    images = images.reshape(*t_shape, crt.num_stokes, *crt.image_shape)
+    if not crt.polarized:
+        images = images[..., 0, :, :]
+    return images
+
+
+def _shape_lightcurve(lc, t_shape, crt):
+    lc = lc.reshape(*t_shape, crt.num_stokes)
+    return lc if crt.polarized else lc[..., 0]
+
+
+def _frame_times(t_frames_M, rt):
+    return torch.as_tensor(t_frames_M, dtype=torch.float32,
+                           device=rt.coords.device)
+
+
 def _compact_prediction(params, predictor, t_frames_M, crt: CompactRayArgs,
                         fused=False):
     """Image frames from domain-compacted samples."""
-    t_shape = tuple(t_frames_M.shape)
     emission = _compact_emission(params, predictor, t_frames_M, crt, fused)
     images = _reduce_to_images(emission, crt)
-    return images.reshape(*t_shape, *crt.image_shape)
+    return _shape_images(images, tuple(t_frames_M.shape), crt)
+
+
+def compact_lightcurve(params, predictor, t_frames_M, crt: CompactRayArgs,
+                       fused=False):
+    """Lightcurve directly from compact samples: lc = em @ weights^T
+    (reference step.py:703-730). The 'lc' loss sums the image over
+    pixels, so the per-Stokes totals are one (F, N) @ (N, ns) product
+    and the per-pixel reduction is not needed. For callers that never
+    need images; loss_fn_image uses compact_image_and_lightcurve."""
+    t_frames_M = _frame_times(t_frames_M, crt)
+    em = _compact_emission(params, predictor, t_frames_M, crt, fused)
+    return _shape_lightcurve(em @ crt.weights.T, tuple(t_frames_M.shape),
+                             crt)
+
+
+def compact_image_and_lightcurve(params, predictor, t_frames_M,
+                                 crt: CompactRayArgs, fused=False):
+    """(images, lightcurve) from one emission pass over compact samples
+    (reference step.py:733-759): the lightcurve is em @ weights^T and the
+    image reduce rides the same pass, so the fused forward runs once."""
+    t_frames_M = _frame_times(t_frames_M, crt)
+    t_shape = tuple(t_frames_M.shape)
+    em = _compact_emission(params, predictor, t_frames_M, crt, fused)
+    images = _reduce_to_images(em, crt)
+    return (_shape_images(images, t_shape, crt),
+            _shape_lightcurve(em @ crt.weights.T, t_shape, crt))
 
 
 def image_plane_prediction(params, predictor, t_frames_M, rt, fused=False):
-    """Emission -> image-plane frames (reference network.py:373-420).
-    fused=True routes the render through the fused CUDA kernels;
-    CompactRayArgs dispatch to the domain-compacted pipeline."""
-    t_frames_M = torch.as_tensor(t_frames_M, dtype=torch.float32,
-                                 device=rt.coords.device)
+    """Emission -> (polarized) image-plane frames (reference
+    network.py:373-420). fused=True routes the render through the fused
+    CUDA kernels; CompactRayArgs dispatch to the domain-compacted
+    pipeline."""
+    t_frames_M = _frame_times(t_frames_M, rt)
     if isinstance(rt, CompactRayArgs):
         return _compact_prediction(params, predictor, t_frames_M, rt,
                                    fused=fused)
@@ -315,42 +508,77 @@ def image_plane_prediction(params, predictor, t_frames_M, rt, fused=False):
             params, predictor, t_frames_M, rt)
     else:
         emission = predict_emission(params, predictor, t_frames_M, rt)
-    if rt.J != 1.0:
-        emission = emission * rt.J
+    emission = emission_lib.apply_stokes_factors(emission, rt.J)
     return gr.radiative_transfer(emission, rt.g, rt.dtau, rt.Sigma)
 
 
 def loss_fn_image(params, predictor, target, sigma, offset, t_frames_M,
                   rt, scale, dtype, fused=False):
-    """Chi-square image loss (reference network.py:422-484); only the
-    'full' image loss is ported."""
-    if dtype != 'full':
-        raise NotImplementedError(f'image loss dtype {dtype!r} is not '
-                                  f"ported; use 'full'")
-    images = image_plane_prediction(params, predictor, t_frames_M, rt,
-                                    fused=fused)
-    loss = torch.sum(torch.abs((images - target - offset) / sigma) ** 2)
+    """Chi-square image ('full') or lightcurve ('lc') loss (reference
+    network.py:422-484). Returns (scale * loss, [images])."""
+    if dtype == 'full':
+        images = image_plane_prediction(params, predictor, t_frames_M, rt,
+                                        fused=fused)
+        loss = torch.sum(torch.abs((images - target - offset) / sigma) ** 2)
+    elif dtype == 'lc':
+        if isinstance(rt, CompactRayArgs):
+            # one product instead of the per-pixel reduce + pixel sum
+            # (different only by float reassociation); the aux images
+            # share the emission pass
+            images, lightcurve = compact_image_and_lightcurve(
+                params, predictor, t_frames_M, rt, fused=fused)
+        else:
+            images = image_plane_prediction(params, predictor, t_frames_M,
+                                            rt, fused=fused)
+            lightcurve = images.sum(dim=(-1, -2))
+        loss = torch.sum(
+            torch.abs((lightcurve - target - offset) / sigma) ** 2)
+    else:
+        raise ValueError(f'image dtype ({dtype}) not supported')
     return scale * loss, [images]
+
+
+def tv_loss(params, predictor, fov, resolution=32):
+    """Finite-difference total variation of the emission field on a voxel
+    grid of the canonical (t = 0) frame: one batched forward evaluation
+    (reference step.py:945-962)."""
+    p0 = next(params.parameters())
+    grid = torch.linspace(-fov / 2, fov / 2, resolution, dtype=p0.dtype,
+                          device=p0.device)
+    coords = torch.stack(torch.meshgrid(grid, grid, grid, indexing='ij'))
+    pts = torch.movedim(coords, 0, -1)
+    valid = torch.ones(pts.shape[:-1], dtype=torch.bool, device=p0.device)
+    em = predictor.emission_at(params, pts, valid, coords)
+    h = fov / (resolution - 1)
+    tv = sum(torch.mean(torch.abs(torch.diff(em, dim=a))) for a in range(3))
+    return tv / h
 
 
 # ---------------------------------------------------------------------------
 # steps
 # ---------------------------------------------------------------------------
-def make_step_fns(predictor, dtype='full', fused=False):
+def make_step_fns(predictor, dtype='full', fused=False, tv_scale=0.0,
+                  tv_fov=None, tv_resolution=32):
     """(grad_step, test_step) for the image loss, equivalent to the
     reference's make_step_fns(kind='image', gather=True): batch args are
     the FULL frame tensors (target, sigma, offset, t_frames) on the
     device plus an `indices` tensor; the frame batch is selected inside
     the step. Both return (loss, state, images); grad_step updates
-    `state` in place."""
+    `state` in place. tv_scale > 0 adds tv_scale * tv_loss over a cube of
+    side tv_fov (2 * predictor.scale by default)."""
 
     def compute_batch_loss(params, target, sigma, third, t_frames, indices,
                            rt, scale):
         take = lambda x: x.index_select(0, indices)
         t_frames_M = rt.frame_times_M(take(t_frames))
-        return loss_fn_image(params, predictor, take(target), take(sigma),
-                             take(third), t_frames_M, rt, scale, dtype,
-                             fused=fused)
+        loss, aux = loss_fn_image(params, predictor, take(target),
+                                  take(sigma), take(third), t_frames_M, rt,
+                                  scale, dtype, fused=fused)
+        if tv_scale:
+            fov = 2.0 * predictor.scale if tv_fov is None else tv_fov
+            loss = loss + tv_scale * tv_loss(params, predictor, fov,
+                                             tv_resolution)
+        return loss, aux
 
     def grad_step(state, target, sigma, third, t_frames, indices, rt,
                   scale):

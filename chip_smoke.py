@@ -1,6 +1,7 @@
 """GPU smoke run of bhnerf_tpu_torch: build the kernels, hold them against
-their plain versions at the main path's shapes, and train a few steps of
-the Tutorial-3 image fit at full width on one CUDA device.
+their plain versions at the shapes of both training paths, and train a
+few steps of the Tutorial-3 image fit and of the ALMA polarized-lightcurve
+fit at full width on one CUDA device.
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 nvcc:
@@ -21,10 +22,23 @@ Phases (any failure raises and exits non-zero):
      of batch 6 on the card, with launch counters proving that every step
      went through both kernels, finite and decreasing losses, steps/s;
   6. torch.profiler over 10 more steps: the device's busy share of a step
-     and each kernel's share of the device time.
+     and each kernel's share of the device time;
+  7. the ALMA polarized-lightcurve fit (the model block of
+     scripts/fit_alma_lp_apr11_sgra_flare.yaml at inclination 60 deg,
+     Stokes I, Q, U, a sub-pixel ensemble of 4 ray tables):
+     alma.get_raytracing_args on the host, compact_ensemble_args in the
+     'gather' and 'native' layouts, both kernels against their plain
+     versions at the 'native' sample count (exact zeros on its filler
+     columns, nothing taken from them by the backward), 20 steps of the
+     'lc' loss with lr_inject in each layout (one forward and one
+     backward launch per step, a falling test loss, every variant drawn),
+     a test step over the ensemble, the polarized 'full' image loss
+     through the 'native' reduce against the segment sum, the cost of the
+     aux-image reduce, and a profile of 10 ALMA steps.
 The line before the last is the JSON kernel summary; the last line is
 {"ok": true, "device": {...}}.
 """
+import dataclasses
 import json
 import os
 import re
@@ -43,6 +57,16 @@ BATCH = 6               # frames per step
 FOV = 16.0
 STEPS = 20
 REPEATS = 20            # launches per timing
+ALMA_RAYS = 4           # sub-pixel ray tables in the ALMA ensemble
+ALMA_SIGMA = (0.15, 1e-2, 1e-2)
+# the model block of scripts/fit_alma_lp_apr11_sgra_flare.yaml, with the
+# tracer's fine steps as in the Tutorial-3 phase
+ALMA_MODEL = {
+    'spin': 0.0, 'fov_M': 40.0, 'z_width': 4, 'rmin': 'ISCO',
+    'Q_frac': 0.85, 'b_consts': {'arad': 0, 'avert': 1, 'ator': 0},
+    'Omega_dir': 'cw', 'Omega_frac': 1.0, 'num_alpha': NUM_RAYS,
+    'num_beta': NUM_RAYS, 't_start_obs': 9.34056333326589,
+    'ngeo': NGEO, 'n_fine': N_FINE}
 # published dense peaks of one H100 SXM (NVIDIA's data sheet): TF32 tensor
 # cores and HBM3
 TF32_FLOPS = 495e12
@@ -147,6 +171,40 @@ def host_precompute(device):
     return predictor, crt, t_frames
 
 
+def kernel_inputs(predictor, crt, t_frames, rng, device):
+    """The arguments render_fwd takes on the training path for a batch of
+    BATCH frames drawn from `rng` over the compact samples `crt`, with
+    seeded weights whose head bias is lifted so that emissions and
+    gradients are macroscopic."""
+    import torch
+    from bhnerf_tpu_torch.ops import fused
+
+    cfg = (predictor.net_depth, predictor.net_width, predictor.do_skip)
+    params = predictor.init_params(
+        generator=torch.Generator().manual_seed(0), device=device)
+    weights = [w.detach() for w in fused.pack_params(params)[0]]
+    biases = [b.detach() for b in fused.pack_params(params)[1]]
+    biases[-1] = biases[-1] + 8.0
+    t_frames_M = crt.frame_times_M(torch.as_tensor(
+        t_frames[rng.choice(NT, BATCH, replace=False)], device=device))
+    coords, omega, tg, smask, _ = fused._flatten_sample_args(
+        crt.coords, crt.Omega, crt.t_geos_rel, 1.0, crt.coords.shape[1])
+    t_eff = (t_frames_M.reshape(-1, 1) - crt.t_injection).contiguous()
+    return (t_eff, coords, omega, tg, smask, weights, biases, cfg,
+            predictor.scale, predictor.posenc_deg)
+
+
+def grad_errors(plain, kernel):
+    """(max abs, max normalised) difference over the gradient leaves of
+    two render_bwd results."""
+    err, norm_err = 0.0, 0.0
+    for a, b in zip(plain[0] + plain[1], kernel[0] + kernel[1]):
+        err = max(err, float((a - b).abs().max()))
+        norm_err = max(norm_err, float((a - b).abs().max()
+                                       / (a.abs().max() + 1e-8)))
+    return err, norm_err
+
+
 def kernel_checks(predictor, crt, t_frames, device):
     """Both kernels against their plain versions on the card at the main
     path's shapes. Returns the JSON entries (launches filled in later)."""
@@ -157,21 +215,8 @@ def kernel_checks(predictor, crt, t_frames, device):
 
     rng = np.random.default_rng(0)
     n = crt.coords.shape[1]
-    cfg = (predictor.net_depth, predictor.net_width, predictor.do_skip)
-    deg = predictor.posenc_deg
-    params = predictor.init_params(
-        generator=torch.Generator().manual_seed(0), device=device)
-    weights = [w.detach() for w in fused.pack_params(params)[0]]
-    biases = [b.detach() for b in fused.pack_params(params)[1]]
-    # lift the head so emissions and gradients are macroscopic
-    biases[-1] = biases[-1] + 8.0
-    t_frames_M = crt.frame_times_M(torch.as_tensor(
-        t_frames[rng.choice(NT, BATCH, replace=False)], device=device))
-    coords, omega, tg, smask, _ = fused._flatten_sample_args(
-        crt.coords, crt.Omega, crt.t_geos_rel, 1.0, n)
-    t_eff = (t_frames_M.reshape(-1, 1) - crt.t_injection).contiguous()
-    common = (t_eff, coords, omega, tg, smask, weights, biases, cfg,
-              predictor.scale, deg)
+    common = kernel_inputs(predictor, crt, t_frames, rng, device)
+    t_eff, coords, omega, tg, smask, weights, biases, cfg, _, deg = common
 
     em_k, f_k = fused.render_fwd(*common, 'float32', stash=True)
     em_p, f_p = fused.render_fwd_plain(*common, 'float32', stash=True)
@@ -227,11 +272,7 @@ def kernel_checks(predictor, crt, t_frames, device):
         gp = fused.render_bwd_plain(g_em, em_p, f_p, omega, weights, biases,
                                     cfg, deg, 'float32', want_dt)
         torch.cuda.synchronize()
-        err, norm_err = 0.0, 0.0
-        for a, b in zip(gp[0] + gp[1], gk[0] + gk[1]):
-            err = max(err, float((a - b).abs().max()))
-            norm_err = max(norm_err, float((a - b).abs().max()
-                                           / (a.abs().max() + 1e-8)))
+        err, norm_err = grad_errors(gp, gk)
         line = (f'bwd f32 want_dt={want_dt}: max|dW_kernel - dW_plain| = '
                 f'{err:.3e}, normalised {norm_err:.3e} (atol 5e-5)')
         if norm_err > 5e-5:
@@ -365,39 +406,386 @@ def train_main_path(predictor, crt, t_frames, device):
     return launches, opt, train_step, 1e3 / steps_per_s
 
 
-def profile_main_path(opt, train_step, crt, step_ms, steps=10):
-    """torch.profiler (device events) over `steps` more steps of the main
-    path: the device's busy share of a step and each kernel's share of
-    the device time. The profiler slows the host, so the busy share is
-    also given against the unprofiled step time `step_ms`."""
+# device rows of a profile by what they belong to (substrings of the
+# kernel names)
+PROFILE_GROUPS = (
+    ('forward kernel', ('fused_render_fwd',)),
+    ('backward kernel', ('fused_render_bwd', 'fused_render_reduce')),
+    ('matmul', ('gemm', 'gemv', 'cutlass', 'cublas')),
+    ('per-pixel reduce', ('index', 'gather', 'scatter')))
+
+
+def profile_path(label, opt, train_step, crt, step_ms, steps=10):
+    """torch.profiler (device events) over `steps` more steps of a
+    training path, after two warm-up steps that the profiler drops: the
+    device's busy share of a step and each kernel's share of the device
+    time. The profiler slows the host, so the busy share is also given
+    against the unprofiled step time `step_ms`."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     from bhnerf_tpu_torch.train.optimizer import LogFn
 
-    opt.num_iters = steps
-    sync = LogFn(lambda o: float(o.loss))   # one step per synchronise
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        opt.run(BATCH, train_step, crt, log_fns=[sync], verbose=False)
+    warmup = 2
+    opt.num_iters = warmup + steps
+    stamps = []
+
+    def tick(o):
+        float(o.loss)                       # one step per synchronise
+        stamps.append(time.perf_counter())
+        prof.step()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=warmup, active=steps,
+                                   repeat=1)) as prof:
+        opt.run(BATCH, train_step, crt, log_fns=[LogFn(tick)], verbose=False)
         torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    wall_ms = 1e3 * (stamps[-1] - stamps[warmup - 1]) / steps
     # device rows only (host ops carry the time of what they launch); the
-    # Adam range overlaps Adam's own kernels
+    # Adam and profiler-step ranges overlap the kernels inside them
     rows = [(e.key, e.self_device_time_total / 1e3 / steps)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and 'Optimizer.step' not in e.key]
+            and 'Optimizer.step' not in e.key
+            and 'ProfilerStep' not in e.key]
     busy_ms = sum(ms for _, ms in rows)
     if busy_ms <= 0.0:
         raise RuntimeError('torch.profiler recorded no device time')
-    log(f'profile: {steps} steps, device busy {busy_ms:.3f} ms per step = '
-        f'{busy_ms / wall_ms:.3f} of the profiled {wall_ms:.3f} ms step, '
-        f'{busy_ms / step_ms:.3f} of the unprofiled {step_ms:.3f} ms step '
-        f'(idle {1 - busy_ms / step_ms:.3f})')
+    # a trace that lost events would understate its rows
+    recorded = {name: sum(e.count for e in prof.key_averages()
+                          if name in e.key)
+                for name in ('fused_render_fwd_kernel',
+                             'fused_render_bwd_kernel')}
+    log(f'profile ({label}): {steps} steps, device busy {busy_ms:.3f} ms per '
+        f'step = {busy_ms / wall_ms:.3f} of the profiled {wall_ms:.3f} ms '
+        f'step, {busy_ms / step_ms:.3f} of the unprofiled {step_ms:.3f} ms '
+        f'step (idle {1 - busy_ms / step_ms:.3f}); kernel launches in the '
+        f'trace: {recorded}')
     for key, ms in sorted(rows, key=lambda r: -r[1])[:8]:
         log(f'  {100 * ms / busy_ms:5.1f}% {ms:.3f} ms/step  {key[:90]}')
+    for group, words in PROFILE_GROUPS:
+        ms = sum(m for key, m in rows if any(w in key for w in words))
+        log(f'  {group}: {ms:.3f} ms/step = {100 * ms / busy_ms:.1f}% of '
+            f'the device time')
+
+
+def alma_host_precompute(device):
+    """The ALMA configuration through the port's entry points: a seeded
+    sub-pixel ensemble of polarized ray constants, compacted in both
+    layouts."""
+    from bhnerf_tpu_torch import alma, constants
+    from bhnerf_tpu_torch.models.fields import NeRFPredictor
+    from bhnerf_tpu_torch.train.step import compact_ensemble_args
+
+    t0 = time.perf_counter()
+    rts = alma.get_raytracing_args(
+        np.deg2rad(60.0), ALMA_MODEL['spin'], ALMA_MODEL,
+        stokes=('I', 'Q', 'U'), rot_angle=np.deg2rad(32.2 + 20.0),
+        num_subpixel_rays=ALMA_RAYS, rng=np.random.default_rng(0),
+        device=device)
+    t_host = time.perf_counter() - t0
+    rmax = ALMA_MODEL['fov_M'] / 2
+    predictor = NeRFPredictor(
+        scale=rmax, rmin=float(constants.isco_pro(ALMA_MODEL['spin'])),
+        rmax=rmax, z_width=ALMA_MODEL['z_width'], net_depth=4,
+        net_width=128, posenc_deg=3, learn_injection=True)
+    for rt in rts:
+        if rt.num_stokes != 3 or not bool(rt.J.isfinite().all()):
+            raise RuntimeError('bad Stokes factors')
+    crts = {layout: compact_ensemble_args(rts, predictor, layout=layout)
+            for layout in ('gather', 'native')}
+    n_dense = NUM_RAYS * NUM_RAYS * NGEO
+    n_in = [int((c.t_geos_rel > -1e29).sum()) for c in crts['gather']]
+    n_gather = crts['gather'][0].coords.shape[1]
+    n_native = crts['native'][0].coords.shape[1]
+    log(f'ALMA host precompute: {ALMA_RAYS} ray tables {NUM_RAYS}x'
+        f'{NUM_RAYS}x{NGEO} (n_fine {N_FINE}, f64) with Stokes factors in '
+        f'{t_host:.1f} s ({t_host / ALMA_RAYS:.1f} s a table); in domain '
+        f'{n_in} of {n_dense} samples '
+        f'({100 * np.mean(n_in) / n_dense:.1f}%); padded N: gather '
+        f'{n_gather}, native {n_native} '
+        f'({100 * (1 - max(n_in) / n_native):.1f}-'
+        f'{100 * (1 - min(n_in) / n_native):.1f}% filler)')
+    for layout, crt_list in crts.items():
+        if len({tuple(c.coords.shape) for c in crt_list}) != 1:
+            raise RuntimeError(f'{layout} ensemble is not uniformly shaped')
+    # the observation: NT frames over the fit's 103-minute training span
+    t_frames = (ALMA_MODEL['t_start_obs']
+                + np.linspace(0.0, 103.0 / 60.0, NT)).astype(np.float32)
+    return predictor, crts, t_frames
+
+
+def alma_kernel_checks(predictor, crts, t_frames, device):
+    """Both kernels against their plain versions at the 'native' sample
+    count of the ALMA configuration (f32; forward with the stash,
+    backward with the frame-time cotangent), with its filler columns
+    checked; kernel times at the 'gather' count beside them."""
+    import torch
+    from bhnerf_tpu_torch.ops import fused
+
+    out = {}
+    for layout in ('native', 'gather'):
+        crt = crts[layout][0]
+        n = crt.coords.shape[1]
+        common = kernel_inputs(predictor, crt, t_frames,
+                               np.random.default_rng(2), device)
+        _, _, omega, tg, _, weights, biases, cfg, _, deg = common
+        em_k, f_k = fused.render_fwd(*common, 'float32', stash=True)
+        em_p, f_p = fused.render_fwd_plain(*common, 'float32', stash=True)
+        torch.cuda.synchronize()
+        fwd_err = float((em_k - em_p).abs().max())
+        f_err = float((f_k - f_p).abs().max())
+        if not torch.allclose(em_k, em_p, atol=2e-6, rtol=1e-4) \
+                or f_err > 1e-5 or float(em_p.max()) < 0.05:
+            raise RuntimeError(f'ALMA {layout}: forward kernel disagrees '
+                               f'with its plain version ({fwd_err:.3e}, '
+                               f'features {f_err:.3e})')
+        filler = tg[0] < -1e29
+        if not bool((em_k[:, filler] == 0).all()) \
+                or not bool((em_p[:, filler] == 0).all()):
+            raise RuntimeError(f'ALMA {layout}: emission on padding columns '
+                               f'is not exactly zero')
+        rng = np.random.default_rng(3)
+        target = torch.as_tensor(rng.random(em_p.shape), dtype=torch.float32,
+                                 device=device)
+        g_em = (2.0 * (em_p - target)).contiguous()
+        bwd_args = (em_p, f_p, omega, weights, biases, cfg, deg, 'float32',
+                    True)
+        gk = fused.render_bwd(g_em, *bwd_args)
+        gp = fused.render_bwd_plain(g_em, *bwd_args)
+        # the backward must take nothing from padding columns, whatever
+        # cotangent arrives there
+        g_noise = g_em.clone()
+        g_noise[:, filler] = 1e3 * torch.randn(
+            (g_em.shape[0], int(filler.sum())), device=device,
+            generator=torch.Generator(device).manual_seed(0))
+        gn = fused.render_bwd(g_noise, *bwd_args)
+        torch.cuda.synchronize()
+        bwd_err, norm_err = grad_errors(gp, gk)
+        dt_rel = float(((gk[2] - gp[2]).abs() / (gp[2].abs() + 1e-12)).max())
+        if norm_err > 5e-5 or dt_rel > 2e-3:
+            raise RuntimeError(f'ALMA {layout}: backward kernel disagrees: '
+                               f'normalised {norm_err:.3e}, d_t {dt_rel:.3e}')
+        if not all(torch.equal(a, b) for a, b in
+                   zip(gk[0] + gk[1] + [gk[2]], gn[0] + gn[1] + [gn[2]])):
+            raise RuntimeError(f'ALMA {layout}: padding columns leak into '
+                               f'the gradients')
+        n_params = sum(w.numel() + b.numel() for w, b in zip(weights, biases))
+        feat = f_p.shape[0]
+        ms = dict(
+            fwd=cuda_ms(lambda: fused.render_fwd(*common, 'float32')),
+            fwd_stash=cuda_ms(lambda: fused.render_fwd(*common, 'float32',
+                                                       stash=True)),
+            fwd_plain=cuda_ms(lambda: fused.render_fwd_plain(
+                *common, 'float32', stash=True)),
+            bwd=cuda_ms(lambda: fused.render_bwd(g_em, *bwd_args)),
+            bwd_plain=cuda_ms(lambda: fused.render_bwd_plain(g_em,
+                                                             *bwd_args)))
+        fwd_b = bound('fwd', cfg, feat, BATCH, n, n_params, 'float32')
+        bwd_b = bound('bwd', cfg, feat, BATCH, n, n_params, 'float32', True)
+        log(f'ALMA {layout} N = {n} ({int(filler.sum())} padding columns, '
+            f'exact zeros, no leak): fwd max|em_kernel - em_plain| = '
+            f'{fwd_err:.3e} (atol 2e-6, rtol 1e-4), features {f_err:.3e}; '
+            f'kernel {ms["fwd"]:.3f} ms (with stash {ms["fwd_stash"]:.3f}), '
+            f'plain {ms["fwd_plain"]:.3f} ms, bound {fwd_b[0]:.3f} ms '
+            f'({fwd_b[1]}), kernel at {100 * fwd_b[0] / ms["fwd"]:.1f}% of '
+            f'it; bwd want_dt: max|dW_kernel - dW_plain| = {bwd_err:.3e}, '
+            f'normalised {norm_err:.3e} (atol 5e-5), d_t rel err '
+            f'{dt_rel:.3e} (rtol 2e-3); kernel {ms["bwd"]:.3f} ms, plain '
+            f'{ms["bwd_plain"]:.3f} ms, bound {bwd_b[0]:.3f} ms '
+            f'({bwd_b[1]}), kernel at {100 * bwd_b[0] / ms["bwd"]:.1f}% of '
+            f'it')
+        out[layout] = dict(n=n, fwd_err=fwd_err, bwd_err=bwd_err, ms=ms,
+                           fwd_bound=fwd_b, bwd_bound=bwd_b)
+    return out
+
+
+def alma_target(predictor, crts, t_frames, device):
+    """A seeded observation: the polarized movie and lightcurve of a
+    random field (seeded weights, head bias lifted), rendered through the
+    port in test mode over the whole ensemble and scaled to a mean Stokes
+    I of 0.3, the intensity prior of the fit's configuration."""
+    import torch
+    from bhnerf_tpu_torch import units
+    from bhnerf_tpu_torch.train.optimizer import TrainStep, total_movie_loss
+    from bhnerf_tpu_torch.train.state import TrainState, make_optimizer
+
+    truth = predictor.init_params(
+        generator=torch.Generator().manual_seed(7), device=device)
+    with torch.no_grad():
+        truth.mlp.layers[-1].bias += 6.0
+    render = TrainStep.image(units.Quantity(t_frames, 'hr'),
+                             np.zeros((NT, 3), np.float32), predictor,
+                             dtype='lc', fused=True, device=device)
+    state = TrainState.create(truth, make_optimizer(1))
+    _, movie = total_movie_loss(BATCH, state, render, crts['gather'],
+                                return_frames=True)
+    if movie.shape != (NT, 3, NUM_RAYS, NUM_RAYS) \
+            or not np.isfinite(movie).all():
+        raise RuntimeError(f'bad target movie {movie.shape}')
+    movie = movie * (0.3 / movie[:, 0].sum(axis=(-1, -2)).mean())
+    return movie.astype(np.float32)
+
+
+def alma_train(label, train_step, crts, predictor, device, steps):
+    """`steps` gradient steps of `train_step` over the ensemble `crts`
+    with the injection offset at its own learning rate; checks launches,
+    losses, variants and the test step over the ensemble. Returns
+    (optimizer, step ms, launches)."""
+    import torch
+    from bhnerf_tpu_torch.ops import fused
+    from bhnerf_tpu_torch.train.optimizer import LogFn, Optimizer
+
+    opt = Optimizer({'num_iters': steps, 'lr_init': 1e-3, 'lr_final': 1e-4,
+                     'lr_inject': 1e-3, 'seed': 0}, predictor, crts,
+                    device=device)
+    eval_frames = np.arange(BATCH)
+    before = float(train_step(opt.state, crts, eval_frames,
+                              update_state=False)[0])
+    losses, stamps, drawn = [], [], []
+
+    def record(o):
+        losses.append(float(o.loss))    # synchronises: one step per stamp
+        stamps.append(time.perf_counter())
+        drawn.append(o.variant)
+
+    fused.render_fwd.launches = 0
+    fused.render_bwd.launches = 0
+    opt.run(BATCH, train_step, crts, log_fns=[LogFn(record)], verbose=False)
+    torch.cuda.synchronize()
+    launches = (fused.render_fwd.launches, fused.render_bwd.launches)
+    fused.render_fwd.launches = 0
+    fused.render_bwd.launches = 0
+    after, _, images = train_step(opt.state, crts, eval_frames,
+                                  update_state=False)
+    after = float(after)
+    test_launches = (fused.render_fwd.launches, fused.render_bwd.launches)
+    steps_per_s = (len(stamps) - 1) / (stamps[-1] - stamps[0])
+    log(f'{label}: {steps} steps at batch {BATCH} over {len(crts)} variants '
+        f'(drawn {sorted(set(drawn))}), step losses {losses[0]:.6g} -> '
+        f'{losses[-1]:.6g}, test loss over the ensemble {before:.6g} -> '
+        f'{after:.6g}; launches fwd {launches[0]}, bwd {launches[1]}; test '
+        f'step launches fwd {test_launches[0]}, bwd {test_launches[1]}; '
+        f'{steps_per_s:.2f} steps/s over steps 2..{steps}; t_injection '
+        f'offset {float(opt.state.params.t_injection.detach()):.4g}')
+    if launches != (steps, steps):
+        raise RuntimeError(f'{label}: expected one forward and one backward '
+                           f'launch per step, got {launches}')
+    if test_launches != (len(crts), 0):
+        raise RuntimeError(f'{label}: a test step over {len(crts)} variants '
+                           f'launched {test_launches}')
+    if not np.all(np.isfinite(losses)) or not after < before:
+        raise RuntimeError(f'{label}: loss did not fall: {before} -> '
+                           f'{after}, steps {losses}')
+    if steps >= STEPS and set(drawn) != set(range(len(crts))):
+        raise RuntimeError(f'{label}: variants drawn {sorted(set(drawn))}')
+    if tuple(images.shape) != (BATCH, 3, NUM_RAYS, NUM_RAYS) \
+            or not bool(torch.isfinite(images).all()):
+        raise RuntimeError(f'{label}: bad images {tuple(images.shape)}')
+    if float(opt.state.params.t_injection.detach()) == 0.0:
+        raise RuntimeError(f'{label}: the injection offset did not move')
+    return opt, 1e3 / steps_per_s, launches
+
+
+def alma_native_reduce_check(predictor, crt, t_frames, movie, device):
+    """The polarized 'full' image loss through the 'native' reduce,
+    forward and backward on the card, against the plain segment sum over
+    the same slots."""
+    import torch
+    from bhnerf_tpu_torch.train import step
+
+    segment = dataclasses.replace(crt, red_group_ids=None)
+    idx = np.arange(BATCH)
+    target = torch.as_tensor(movie[idx], device=device)
+    sigma = torch.as_tensor(np.asarray(ALMA_SIGMA, np.float32)[:, None, None]
+                            / NUM_RAYS, device=device)
+    t_M = crt.frame_times_M(torch.as_tensor(t_frames[idx], device=device))
+    results = []
+    for args in (crt, segment):
+        params = predictor.init_params(
+            generator=torch.Generator().manual_seed(0), device=device)
+        with torch.no_grad():
+            params.mlp.layers[-1].bias += 4.0
+        loss, [images] = step.loss_fn_image(
+            params, predictor, target, sigma, 0.0, t_M, args, 1.0, 'full',
+            fused=True)
+        loss.backward()
+        results.append((images.detach(), float(loss.detach()),
+                        [p.grad for p in params.parameters()]))
+    (img_n, loss_n, g_n), (img_s, loss_s, g_s) = results
+    scale = float(img_s.abs().max())
+    img_err = float((img_n - img_s).abs().max()) / scale
+    g_err = max(float((a - b).abs().max() / (b.abs().max() + 1e-12))
+                for a, b in zip(g_n, g_s))
+    log(f"ALMA 'full' image loss, native reduce against segment sum: images "
+        f'{tuple(img_n.shape)} differ by {img_err:.3e} of the max (atol '
+        f'2e-5), loss {loss_n:.6g} against {loss_s:.6g} (rtol 1e-4), '
+        f'gradients differ by {g_err:.3e} normalised (atol 1e-4)')
+    if img_err > 2e-5 or abs(loss_n - loss_s) > 1e-4 * abs(loss_s) \
+            or g_err > 1e-4 or scale <= 0.0:
+        raise RuntimeError('native reduce disagrees with the segment sum')
+
+
+def alma_phase(kernels, device):
+    """The ALMA polarized-lightcurve fit at full width through the port's
+    entry points; fills the ALMA keys of the JSON kernel entries."""
+    import torch
+    from bhnerf_tpu_torch import units
+    from bhnerf_tpu_torch.train import step
+    from bhnerf_tpu_torch.train.optimizer import TrainStep
+
+    predictor, crts, t_frames = alma_host_precompute(device)
+    checks = alma_kernel_checks(predictor, crts, t_frames, device)
+    movie = alma_target(predictor, crts, t_frames, device)
+    lightcurve = movie.sum(axis=(-1, -2))
+    log(f'ALMA target: lightcurves {lightcurve.shape}, mean I '
+        f'{lightcurve[:, 0].mean():.3f}, mean |Q + iU| '
+        f'{np.hypot(lightcurve[:, 1], lightcurve[:, 2]).mean():.3f}')
+    t_q = units.Quantity(t_frames, 'hr')
+    lc_step = TrainStep.image(t_q, lightcurve, predictor,
+                              sigma=np.asarray(ALMA_SIGMA), dtype='lc',
+                              fused=True, device=device)
+    runs, launches = {}, [0, 0]
+    for layout in ('gather', 'native'):
+        runs[layout] = alma_train(f"ALMA 'lc' fit, {layout} layout", lc_step,
+                                  crts[layout], predictor, device, STEPS)
+        launches = [a + b for a, b in zip(launches, runs[layout][2])]
+
+    alma_native_reduce_check(predictor, crts['native'][0], t_frames, movie,
+                             device)
+    full_step = TrainStep.image(
+        t_q, movie, predictor, dtype='full', fused=True, device=device,
+        sigma=np.asarray(ALMA_SIGMA)[:, None, None] / NUM_RAYS)
+    alma_train("ALMA 'full' image fit, native layout", full_step,
+               crts['native'], predictor, device, 5)
+
+    # what the 'lc' step pays for its aux images, and the lightcurve product
+    for layout in ('gather', 'native'):
+        crt = crts[layout][0]
+        em = torch.rand((BATCH, crt.coords.shape[1]), device=device)
+        red_ms = cuda_ms(lambda: step._reduce_to_images(em, crt))
+        mm_ms = cuda_ms(lambda: em @ crt.weights.T)
+        log(f'ALMA {layout}: per-pixel reduce of the aux images '
+            f'{red_ms:.3f} ms a step, em @ W^T {mm_ms:.3f} ms')
+    for layout in ('gather', 'native'):
+        opt, step_ms, _ = runs[layout]
+        profile_path(f'ALMA lc, {layout}', opt, lc_step, crts[layout],
+                     step_ms)
+
+    steps = 2 * STEPS
+    for entry, kind, count in zip(kernels, ('fwd', 'bwd'), launches):
+        native, gather = checks['native'], checks['gather']
+        entry.update({
+            'alma_launches': count, 'alma_launches_per_step': count / steps,
+            'alma_n': native['n'], 'alma_max_abs_err': native[kind + '_err'],
+            'alma_ms': native['ms'][kind],
+            'alma_plain_ms': native['ms'][kind + '_plain'],
+            'alma_bound_ms': native[kind + '_bound'][0],
+            'alma_bound_by': native[kind + '_bound'][1],
+            'alma_gather_n': gather['n'],
+            'alma_gather_ms': gather['ms'][kind],
+            'alma_gather_bound_ms': gather[kind + '_bound'][0]})
+        if kind == 'fwd':
+            entry['alma_stash_ms'] = native['ms']['fwd_stash']
 
 
 def main():
@@ -435,7 +823,8 @@ def main():
     kernels = kernel_checks(predictor, crt, t_frames, device)
     launches, opt, train_step, step_ms = train_main_path(
         predictor, crt, t_frames, device)
-    profile_main_path(opt, train_step, crt, step_ms)
+    profile_path('Tutorial-3', opt, train_step, crt, step_ms)
+    alma_phase(kernels, device)
     for entry, count in zip(kernels, launches):
         entry['launches'] = count
         entry['launches_per_step'] = count / STEPS

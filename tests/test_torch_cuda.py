@@ -13,6 +13,7 @@ import torch
 
 from bhnerf_tpu_torch.models.fields import NeRFPredictor
 from bhnerf_tpu_torch.ops import fused
+from bhnerf_tpu_torch.train import step
 
 
 @pytest.fixture
@@ -195,3 +196,115 @@ def test_forward_many_feature_rows_on_card(cuda_device):
     assert float(em_p.max()) > 0.05
     np.testing.assert_allclose(em_k.cpu().numpy(), em_p.cpu().numpy(),
                                atol=2e-6, rtol=1e-4)
+
+
+def _native_args(device, seed=0):
+    """Seeded polarized ray constants (8x8 rays, 40 samples) compacted in
+    the 'native' layout: k-major group slots with inert filler columns."""
+    rng = np.random.default_rng(seed)
+    shape = (8, 8, 40)
+    put = lambda x: torch.as_tensor(np.asarray(x, np.float32)).to(device)
+    rt = step.RayTracingArgs(
+        coords=put(rng.uniform(-9, 9, (3, *shape))),
+        Omega=put(rng.uniform(0.01, 0.1, shape)),
+        J=put(rng.standard_normal((3, *shape))),
+        g=put(rng.uniform(0.5, 1.5, shape)),
+        dtau=put(rng.uniform(0.01, 0.02, shape)),
+        Sigma=put(rng.uniform(10, 100, shape)),
+        t_geos_rel=put(rng.uniform(10, 30, shape)),
+        t_injection=torch.zeros((), device=device))
+    pred = NeRFPredictor(scale=9.0, rmin=3.0, rmax=9.0, z_width=3.0)
+    return pred, step.compact_raytracing_args(rt, pred, layout='native')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('compute_dtype', ['float32', 'bfloat16'])
+def test_native_layout_filler_is_inert_on_card(cuda_device, compute_dtype):
+    """Both kernels on a 'native'-layout input (N a multiple of 64, not of
+    the forward's 128): emission and gradients against the plain versions
+    (f32: atol 2e-6 / rtol 1e-4 and 5e-5 normalised, d_t rtol 2e-3; bf16:
+    2e-3 / 2e-2 and 1e-2), exact zeros in the emission of every filler
+    column, a positive emission elsewhere, and gradients and d_t that are
+    bitwise the same whatever cotangent arrives on the filler columns."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pred, crt = _native_args(cuda_device)
+    n = crt.coords.shape[1]
+    assert n % fused.TILE_N == 0 and crt.red_gather is None
+    filler = crt.t_geos_rel < -1e29
+    assert 0.05 < float(filler.float().mean()) < 0.7
+    assert bool((crt.coords[:, filler] == 0).all())
+    params = pred.init_params(generator=torch.Generator().manual_seed(0),
+                              device=cuda_device)
+    weights = [w.detach() for w in fused.pack_params(params)[0]]
+    biases = [b.detach() + 0.3 for b in fused.pack_params(params)[1]]
+    biases[-1] = biases[-1] + 8.0
+    coords, omega, tg, smask, _ = fused._flatten_sample_args(
+        crt.coords, crt.Omega, crt.t_geos_rel, 1.0, n)
+    t_eff = torch.tensor([[0.0], [7.0], [40.0]], device=cuda_device)
+    cfg = (pred.net_depth, pred.net_width, pred.do_skip)
+    args = (t_eff, coords, omega, tg, smask, weights, biases, cfg,
+            pred.scale, pred.posenc_deg, compute_dtype)
+    em_k, f_k = fused.render_fwd(*args, stash=True)
+    em_p, f_p = fused.render_fwd_plain(*args, stash=True)
+    torch.cuda.synchronize()
+    f32 = compute_dtype == 'float32'
+    tol = dict(atol=2e-6, rtol=1e-4) if f32 else dict(atol=2e-3, rtol=2e-2)
+    np.testing.assert_allclose(em_k.cpu().numpy(), em_p.cpu().numpy(), **tol)
+    assert bool((em_k[:, filler] == 0.0).all())
+    assert bool((em_k[:, ~filler] > 0.0).all())
+
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    g = torch.randn(em_p.shape, device=cuda_device, generator=gen)
+    g_noise = g.clone()
+    g_noise[:, filler] = 1e3 * torch.randn(
+        (g.shape[0], int(filler.sum())), device=cuda_device, generator=gen)
+    bwd = (em_p, f_p, omega, weights, biases, cfg, pred.posenc_deg,
+           compute_dtype, True)
+    gk = fused.render_bwd(g, *bwd)
+    gn = fused.render_bwd(g_noise, *bwd)
+    gp = fused.render_bwd_plain(g, *bwd)
+    torch.cuda.synchronize()
+    for a, b in zip(gp[0] + gp[1], gk[0] + gk[1]):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        scale = np.abs(a).max() + 1e-8
+        np.testing.assert_allclose(b / scale, a / scale,
+                                   atol=5e-5 if f32 else 1e-2)
+    if f32:
+        np.testing.assert_allclose(gk[2].cpu().numpy(), gp[2].cpu().numpy(),
+                                   rtol=2e-3, atol=1e-6)
+    assert all(torch.equal(a, b) for a, b in
+               zip(gk[0] + gk[1] + [gk[2]], gn[0] + gn[1] + [gn[2]]))
+
+
+@pytest.mark.cuda
+def test_native_reduce_matches_segment_sum_on_card(cuda_device):
+    """_NativeReduce on the card: images against the plain segment sum
+    over the same slots (rtol 1e-5), and its backward against both the
+    segment sum's autograd and the analytic adjoint d_em[f, i] = sum_s
+    d_img[f, s, pixel_ids[i]] * weights[s, i] in float64 (rtol 1e-5);
+    filler slots get exactly zero."""
+    _, crt = _native_args(cuda_device, seed=1)
+    n = crt.coords.shape[1]
+    gen = torch.Generator(cuda_device).manual_seed(2)
+    em0 = torch.rand((4, n), device=cuda_device, generator=gen)
+    d_img = torch.randn((4, 3, crt.npix), device=cuda_device, generator=gen)
+    outs = []
+    for reduce in (lambda em: step._reduce_to_images(em, crt),
+                   lambda em: step._segment_reduce(crt.npix, em,
+                                                   crt.pixel_ids,
+                                                   crt.weights)):
+        em = em0.clone().requires_grad_(True)
+        img = reduce(em)
+        (img * d_img).sum().backward()
+        outs.append((img.detach().cpu().numpy(), em.grad.cpu().numpy()))
+    assert outs[0][0].shape == (4, 3, 64)
+    np.testing.assert_allclose(outs[0][0], outs[1][0], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(outs[0][1], outs[1][1], rtol=1e-5, atol=1e-5)
+    pix = crt.pixel_ids.cpu().numpy()
+    d_pad = np.pad(d_img.cpu().numpy().astype(np.float64),
+                   ((0, 0), (0, 0), (0, 1)))
+    analytic = np.einsum('fsn,sn->fn', d_pad[:, :, pix],
+                         crt.weights.cpu().numpy().astype(np.float64))
+    np.testing.assert_allclose(outs[0][1], analytic, rtol=1e-5, atol=1e-5)
+    filler = (crt.t_geos_rel < -1e29).cpu().numpy()
+    assert (outs[0][1][:, filler] == 0).all()

@@ -1,5 +1,6 @@
-"""Port parity: domain compaction, the per-pixel reduction, the image loss,
-Adam and the training loop of bhnerf_tpu_torch against bhnerf_tpu.
+"""Port parity: domain compaction (both layouts, unpolarized), the per-pixel
+reduction, the image loss, Adam and the training loop of bhnerf_tpu_torch
+against bhnerf_tpu. The polarized lightcurve path is in test_torch_alma.py.
 
 Small sizes (8x8 rays, ngeo 16, width 32); inputs from numpy seeds, JAX
 parameters copied in with params_from_jax, frame indices passed
@@ -24,7 +25,7 @@ from bhnerf_tpu.train import make_optimizer as j_make_optimizer
 from bhnerf_tpu.train import raytracing_args as j_raytracing_args
 from bhnerf_tpu.train import step as j_step
 
-from bhnerf_tpu_torch import units
+from bhnerf_tpu_torch import alma, units
 from bhnerf_tpu_torch.geodesics.dataset import Geodesics
 from bhnerf_tpu_torch.models.fields import NeRFPredictor
 from bhnerf_tpu_torch.ops import fused
@@ -87,6 +88,50 @@ def test_compact_layout_matches_jax(setup, field):
         np.testing.assert_allclose(b, a, rtol=1e-5, atol=0)
     else:
         np.testing.assert_array_equal(b, a.astype(b.dtype))
+
+
+@pytest.mark.parametrize('field', ['coords', 'Omega', 'weights',
+                                   't_geos_rel', 'pixel_ids',
+                                   'red_group_ids'])
+def test_native_layout_matches_jax(setup, field):
+    """compact_raytracing_args(layout='native') with scalar-J weights is
+    the reference's host numpy: the same k-major slots and fillers,
+    exactly; the weights to rtol 1e-5 (f64-vs-f32 Doppler factor)."""
+    j_nat = j_step.compact_raytracing_args(setup['j_rt'], setup['jpred'],
+                                           tile=TILE, layout='native')
+    nat = step.compact_raytracing_args(setup['rt'], setup['pred'],
+                                       layout='native')
+    assert nat.red_gather is None and nat.red_weights is None
+    assert j_nat.red_gather is None and not nat.polarized
+    a, b = np.asarray(getattr(j_nat, field)), getattr(nat, field).numpy()
+    assert a.shape == b.shape
+    if field == 'weights':
+        np.testing.assert_allclose(b, a, rtol=1e-5, atol=0)
+    else:
+        np.testing.assert_array_equal(b, a.astype(b.dtype))
+
+
+def test_native_layout_images_match_gather(setup):
+    """The two layouts render the same unpolarized images and parameter
+    gradients through the fused path: loss rtol 2e-5, gradients rtol 5e-4
+    / atol 5e-7 (test_compact.py:236-246)."""
+    s = setup
+    nat = step.compact_raytracing_args(s['rt'], s['pred'], layout='native')
+    assert nat.coords.shape[-1] >= s['crt'].coords.shape[-1]
+    results = []
+    for crt in (nat, s['crt']):
+        params = torch_params(s)
+        img = step.image_plane_prediction(params, s['pred'],
+                                          torch.as_tensor(T_FRAMES), crt,
+                                          fused=True)
+        assert tuple(img.shape) == (3, 8, 8)
+        loss = torch.sum(img ** 2)
+        loss.backward()
+        results.append((float(loss.detach()),
+                        [l.weight.grad.numpy() for l in params.mlp.layers]))
+    np.testing.assert_allclose(results[0][0], results[1][0], rtol=2e-5)
+    for a, b in zip(results[0][1], results[1][1]):
+        np.testing.assert_allclose(a, b, rtol=5e-4, atol=5e-7)
 
 
 def test_compact_images_match_jax(setup):
@@ -241,7 +286,8 @@ def test_optimizer_run_lowers_loss_on_cpu(setup):
 @pytest.mark.parametrize('entry_point', [
     Optimizer.__init__, TrainStep.image, TemporalBatchedArgs.__init__,
     step.raytracing_args, NeRFPredictor.init_params,
-    NeRFPredictor.params_from_jax], ids=lambda f: f.__qualname__)
+    NeRFPredictor.params_from_jax, alma.get_raytracing_args],
+    ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(entry_point):
     """The port's entry points run on the card unless the caller asks for
     the CPU (as these tests do): each one's `device` defaults to 'cuda'."""
