@@ -1,21 +1,77 @@
-"""The velocity warp, the supervision-domain mask and Stokes helpers.
+"""Synthetic emission, the velocity warp, the forward movie renderer, the
+supervision-domain mask and Stokes helpers.
 
-PyTorch counterpart of a subset of `bhnerf_tpu/emission.py`: the
-rigid-rotation velocity warp that maps every frame back to the canonical
-t0 frame and the emission-shell mask (:101-222), the per-sample Stokes
-factors of the dense render (:228), and the host-side Stokes helpers
-`normalize_stokes` and `rotate_evpa` (:360-397), which work on numpy
-arrays like the rest of the once-per-configuration precompute. The
-synthetic emission generators and the full forward movie renderer are
-not ported yet.
+PyTorch counterpart of a subset of `bhnerf_tpu/emission.py`: the hotspot
+generator (:24-56), the rigid-rotation velocity warp that maps every
+frame back to the canonical t0 frame and the emission-shell mask
+(:101-222), trilinear sampling of a 3D field (:181), the forward movie
+renderer `image_plane_dynamics` (:243-322) with the per-sample Stokes
+factors (:228), and the host-side Stokes helpers `normalize_stokes` and
+`rotate_evpa` (:360-397), which work on numpy arrays like the rest of the
+once-per-configuration precompute. `generate_tube`, `equatorial_ring`
+and `propogate_flatspace_emission` are not ported yet.
 """
 from __future__ import annotations
+
+import itertools
 
 import numpy as np
 import torch
 
 from bhnerf_tpu_torch import constants as consts
 from bhnerf_tpu_torch import units, utils
+from bhnerf_tpu_torch.ops import gr
+
+# image_plane_dynamics renders frames in chunks that keep its eager warp
+# and interpolation temporaries (about 512 bytes a sample and frame in
+# float32) within this many bytes of device memory
+RENDER_BUDGET_BYTES = 2 ** 31
+_BYTES_PER_SAMPLE_FRAME = 512
+
+
+def _orbit_rotation(rot_axis):
+    """Rotation taking the z axis onto the orbit normal `rot_axis`
+    (reference emission.py:24-32), in float32 as the reference builds
+    it."""
+    rot_axis = np.asarray(rot_axis, dtype=np.float64)
+    rot_axis = rot_axis / np.sqrt(np.sum(rot_axis**2))
+    z_axis = np.array([0.0, 0.0, 1.0])
+    rot_axis_prime = np.cross(z_axis, rot_axis)
+    if np.sqrt(np.sum(rot_axis_prime**2)) < 1e-5:
+        rot_axis_prime = z_axis
+    rot_angle_prime = np.arccos(np.dot(rot_axis, z_axis))
+    return utils.rotation_matrix(
+        rot_axis_prime, torch.tensor(rot_angle_prime,
+                                     dtype=torch.float32)).numpy()
+
+
+def generate_hotspot(resolution, rot_axis, rot_angle, orbit_radius, std,
+                     r_isco, fov, std_clip=np.inf, normalize=True):
+    """Gaussian hotspot on a circular orbit (reference emission.py:35-56):
+    a Grid3D on the host, 2D or 3D by the length of `resolution`,
+    normalised to a unit integral unless `normalize` is False."""
+    if orbit_radius < r_isco:
+        raise ValueError(
+            f'hotspot center ({orbit_radius}) is within r_isco: {r_isco}')
+    resolution = tuple(int(n) for n in np.atleast_1d(resolution))
+    center_2d = orbit_radius * np.array([np.cos(rot_angle), np.sin(rot_angle)])
+    if len(resolution) == 2:
+        center = center_2d
+    else:
+        center = _orbit_rotation(rot_axis) @ np.append(center_2d, 0.0)
+    emission = utils.gaussian_field(resolution, center, std, fov=fov,
+                                    std_clip=std_clip)
+    if normalize:
+        emission = emission / emission.integrate()
+    return emission
+
+
+def _as_tensor(x, device=None):
+    """A tensor as it is; anything else as a float32 tensor, as the
+    reference's jnp.asarray makes one."""
+    if isinstance(x, torch.Tensor):
+        return x if device is None else x.to(device)
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
 
 def velocity_warp_matrix(coords_ndim, Omega, t_frames, t_start_obs, t_geos,
@@ -27,7 +83,7 @@ def velocity_warp_matrix(coords_ndim, Omega, t_frames, t_start_obs, t_geos,
     maps frame-time samples back to the canonical t0 frame, valid marks
     samples after the injection time. NaN-free by construction.
     """
-    Omega = torch.as_tensor(Omega)
+    Omega = _as_tensor(Omega)
 
     if isinstance(t_start_obs, units.Quantity):
         t_units = t_start_obs.unit
@@ -42,7 +98,7 @@ def velocity_warp_matrix(coords_ndim, Omega, t_frames, t_start_obs, t_geos,
     if isinstance(t_frames, units.Quantity):
         t_frames = (t_frames.to(t_units).value if t_units is not None
                     else t_frames.value)
-    t_frames = torch.as_tensor(t_frames, device=Omega.device)
+    t_frames = _as_tensor(t_frames, Omega.device)
 
     if Omega.ndim == 0:
         Omega = Omega[None]
@@ -53,8 +109,8 @@ def velocity_warp_matrix(coords_ndim, Omega, t_frames, t_start_obs, t_geos,
     if t_frames.ndim != 0:
         t_frames = utils.expand_dims(t_frames, t_frames.ndim + Omega.ndim, -1)
 
-    t_geos = (t_frames - t_start_obs) / GM_c3 + torch.as_tensor(
-        t_geos, device=Omega.device)
+    t_geos = (t_frames - t_start_obs) / GM_c3 + _as_tensor(t_geos,
+                                                           Omega.device)
     t_M = t_geos - t_injection
     valid = t_M >= 0.0
     theta_rot = torch.where(valid, t_M, torch.zeros_like(t_M)) * Omega
@@ -70,7 +126,8 @@ def velocity_warp_coords(coords, Omega, t_frames, t_start_obs, t_geos,
     coords: stacked [x, y, z] with axis 0 the component axis. Returns
     (warped (..., 3), valid) with zeros, not NaN, in invalid slots.
     """
-    coords = torch.as_tensor(coords)
+    coords = _as_tensor(coords)
+    Omega = _as_tensor(Omega, coords.device)
     theta_rot, valid = velocity_warp_matrix(
         coords.ndim, Omega, t_frames, t_start_obs, t_geos, t_injection,
         rot_axis, M, t_units)
@@ -82,6 +139,129 @@ def velocity_warp_coords(coords, Omega, t_frames, t_start_obs, t_geos,
         coords = utils.expand_dims(coords, theta_rot.ndim + 1, 1)
     warped = torch.sum(inv_rot * coords[None], dim=1)
     return torch.movedim(warped, 0, -1), valid
+
+
+def interpolate_coords(emission, coords):
+    """Trilinear sample of a 3D field at world coordinates (reference
+    emission.py:181-195): jax.scipy.ndimage.map_coordinates(order=1,
+    cval=0) written out as its 8-corner gather with floor weights, so an
+    out-of-range corner contributes 0 and points near the border blend
+    toward 0. emission: Grid3D; coords: (..., 3) tensor. Returns (...) on
+    the device of `coords`."""
+    if not isinstance(emission, utils.Grid3D):
+        raise TypeError('interpolate_coords requires a Grid3D field')
+    data = emission.data.to(coords.device)
+    shape = data.shape
+    idx = utils.world_to_image_coords(coords, emission.fov, shape)
+    nodes = []
+    for d, size in enumerate(shape):
+        lower = torch.floor(idx[..., d])
+        upper_weight = idx[..., d] - lower
+        index = lower.to(torch.int64)
+        nodes.append([(index, 1 - upper_weight), (index + 1, upper_weight)])
+    flat = data.reshape(-1)
+    out = None
+    # the reference's order: corners in itertools.product order, each
+    # weight the product of its three 1D weights
+    for corner in itertools.product(*nodes):
+        valid, offset, weight = True, 0, None
+        for (index, w), size in zip(corner, shape):
+            valid = valid & (index >= 0) & (index < size)
+            offset = offset * size + index.clamp(0, size - 1)
+            weight = w if weight is None else weight * w
+        value = weight * torch.where(valid, flat[offset], 0.0)
+        out = value if out is None else out + value
+    return out
+
+
+def image_plane_dynamics(emission_0, geos, Omega, t_frames, t_injection,
+                         J=1.0, t_start_obs=None, slow_light=True,
+                         doppler=True, rot_axis=(0, 0, 1),
+                         M=consts.sgra_mass, frame_chunk=None,
+                         device='cuda'):
+    """Render the image-plane movie of a rigidly rotating 3D emission field
+    (reference emission.py:243-322) on `device`.
+
+    emission_0: Grid3D, or a movie Grid3D with a leading time axis of one
+    frame per entry of t_frames. J: a scalar intensity scale or Stokes
+    factors (nstokes, na, nb, ngeo). Returns (nt, [nstokes,] na, nb).
+
+    The time arithmetic is done in float64 on the host and cast, as
+    raytracing_args does: each frame's offset from t_start_obs in M and
+    each sample's t_geos - t_injection, added in float32 on the device
+    (the reference adds all of it in float32 with t_geos near -1000 M).
+    Frames are rendered in chunks of `frame_chunk` (by default as many as
+    RENDER_BUDGET_BYTES holds), with t_start_obs pinned to the first
+    frame of the whole movie."""
+    if not isinstance(emission_0, utils.Grid3D):
+        raise TypeError('emission_0 must be a Grid3D')
+    is_movie = emission_0.data.ndim != emission_0.spatial_ndim
+    if t_start_obs is None:
+        if isinstance(t_frames, units.Quantity):
+            t_start_obs = t_frames[0] if t_frames.ndim else t_frames
+        else:
+            t_start_obs = np.atleast_1d(np.asarray(t_frames))[0]
+    # the units rule of velocity_warp_matrix: t_start_obs's unit, else
+    # t_frames's, else times in M
+    t_units = None
+    if isinstance(t_start_obs, units.Quantity):
+        t_units = t_start_obs.unit
+        t_start_obs = t_start_obs.value
+    elif isinstance(t_frames, units.Quantity):
+        t_units = t_frames.unit
+    if isinstance(t_frames, units.Quantity):
+        t_frames = t_frames.to(t_units).value
+    GM_c3 = consts.GM_c3(M).to(t_units).value if t_units is not None else 1.0
+    t_M = ((np.asarray(t_frames, np.float64) - float(t_start_obs))
+           / GM_c3)
+    nt = t_M.shape[0] if t_M.ndim else 1
+    if is_movie and emission_0.data.shape[0] != nt:
+        raise ValueError(
+            f'movie emission has {emission_0.data.shape[0]} frames but '
+            f't_frames has {nt}: frame i is rendered at time i (interpolate '
+            f'or resample one of them first)')
+
+    as_t = lambda x: _as_tensor(x, device)
+    t_geos = np.asarray(geos.t, np.float64) if slow_light else 0.0
+    t_geos_rel = as_t(np.broadcast_to(t_geos - float(t_injection),
+                                      np.shape(geos.x)))
+    coords = as_t(np.stack([geos.x, geos.y, geos.z], axis=0))
+    Omega_t = as_t(Omega)
+    g = 1.0
+    if doppler:
+        g = as_t(gr.doppler_factor(
+            geos, gr.azimuthal_velocity_vector(geos, np.asarray(Omega))))
+    if np.ndim(J) > 0:
+        J = as_t(J)
+    dtau, Sigma = as_t(geos.dtau), as_t(geos.Sigma)
+    data = emission_0.data.to(device)
+
+    def render(t_chunk, data_chunk):
+        warped, valid = velocity_warp_coords(
+            coords, Omega_t, as_t(t_chunk), 0.0, t_geos_rel, 0.0,
+            rot_axis=rot_axis)
+        grid = lambda d: utils.Grid3D(d, emission_0.start, emission_0.stop)
+        if not is_movie:
+            em = interpolate_coords(grid(data_chunk), warped)
+        else:
+            em = torch.stack([
+                interpolate_coords(grid(data_chunk[i]),
+                                   warped[i] if warped.ndim > 4 else warped)
+                for i in range(data_chunk.shape[0])])
+        em = torch.where(valid, em, torch.zeros_like(em))
+        return gr.radiative_transfer(apply_stokes_factors(em, J), g, dtau,
+                                     Sigma)
+
+    if t_M.ndim == 0:
+        return render(t_M, data)
+    if frame_chunk is None:
+        n = int(np.prod(np.shape(geos.x)))
+        frame_chunk = max(1, RENDER_BUDGET_BYTES
+                          // (_BYTES_PER_SAMPLE_FRAME * n))
+    return torch.cat([
+        render(t_M[i:i + frame_chunk],
+               data[i:i + frame_chunk] if is_movie else data)
+        for i in range(0, nt, frame_chunk)])
 
 
 def domain_mask(coords, rmin=0.0, rmax=np.inf, z_width=np.inf):

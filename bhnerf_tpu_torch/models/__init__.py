@@ -1,2 +1,3 @@
 from bhnerf_tpu_torch.models.fields import (MLP, NeRFParams, NeRFPredictor,
-                                            posenc)
+                                            params_to_numpy, posenc,
+                                            sample_3d_grid)

@@ -2,11 +2,14 @@
 
 PyTorch counterpart of the main-path subset of
 `bhnerf_tpu/models/fields.py`: `safe_sin`, `posenc`, the MLP with its
-skip connection (:93-127) as an `nn.Module`, and `NeRFPredictor`
-(:133-225). The predictor is a frozen configuration; its parameters are
-a `NeRFParams` module made by `init_params` (he-uniform, from an explicit
-`torch.Generator`) or copied from the JAX package's pytree by
-`params_from_jax`.
+skip connection (:93-127) as an `nn.Module`, `NeRFPredictor` (:133-225)
+and `sample_3d_grid` (:282-312). The predictor is a frozen
+configuration; its parameters are a `NeRFParams` module made by
+`init_params` (he-uniform, from an explicit `torch.Generator`) or copied
+from the JAX package's pytree by `params_from_jax`, whose inverse is
+`params_to_numpy`. The MLP here is plain PyTorch: the training path runs
+it inside the fused kernels, and the reference evaluates these entry
+points in XLA, outside its Pallas kernels.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch
 from torch import nn
 
 from bhnerf_tpu_torch import emission as emission_lib
+from bhnerf_tpu_torch import units
 
 
 def safe_sin(x):
@@ -179,6 +183,19 @@ class NeRFPredictor:
             em, coords, self.rmin, self.rmax, self.z_width)
         return torch.where(valid, em, torch.zeros_like(em))
 
+    def __call__(self, params, t_frames, t_units, coords, Omega, t_start_obs,
+                 t_geos, t_injection):
+        """Emission of the warped field at every sample and frame
+        (reference fields.py:189-198). coords: (3, ...) tensor; t_frames
+        may be a units.Quantity."""
+        t_injection = learned_t_injection(params, t_injection)
+        warped, valid = emission_lib.velocity_warp_coords(
+            coords, Omega, t_frames, t_start_obs, t_geos, t_injection,
+            t_units=t_units)
+        return self.emission_at(params, warped, valid, coords)
+
+    apply = __call__
+
     _YAML_KEYS = ('scale', 'rmin', 'rmax', 'z_width', 'posenc_deg',
                   'posenc_var', 'net_depth', 'net_width', 'out_channel',
                   'do_skip', 'compute_dtype', 'learn_injection')
@@ -205,3 +222,48 @@ class NeRFPredictor:
         cfg = {k: inf_forms.get(v, v) if isinstance(v, str) else v
                for k, v in cfg.items()}
         return cls(**cfg)
+
+
+def params_to_numpy(params):
+    """The JAX package's parameter pytree of a NeRFParams module, as numpy:
+    {'dense_i': {'kernel' (in, out), 'bias' (out,)}, ['t_injection']}.
+    The inverse of NeRFPredictor.params_from_jax."""
+    out = {f'dense_{i}': {'kernel': layer.weight.detach().cpu().numpy().T
+                          .copy(),
+                          'bias': layer.bias.detach().cpu().numpy().copy()}
+           for i, layer in enumerate(params.mlp.layers)}
+    if has_learned_injection(params):
+        out['t_injection'] = params.t_injection.detach().cpu().numpy().copy()
+    return out
+
+
+@torch.no_grad()
+def sample_3d_grid(predictor, params, t_frame=0.0, t_start_obs=0.0,
+                   Omega=0.0, fov=None, coords=None, resolution=64,
+                   chunk=-1):
+    """The trained field on a regular 3D grid (reference fields.py:282-312),
+    evaluated on the parameters' device in chunks of `chunk` slices of
+    the first axis (all at once when chunk < 0); returns a numpy array.
+    A learned injection offset is dropped: the grid is sampled in the
+    canonical frame, where a positive offset would mask the whole
+    volume."""
+    if coords is None and fov is not None:
+        grid_1d = np.linspace(-fov / 2, fov / 2, resolution)
+        coords = np.stack(np.meshgrid(grid_1d, grid_1d, grid_1d,
+                                      indexing='ij'))
+    elif coords is None:
+        raise ValueError('Either coords or fov+resolution must be provided')
+    t_units = t_frame.unit if isinstance(t_frame, units.Quantity) else None
+    resolution = coords.shape[1]
+    chunk = resolution if chunk < 0 else chunk
+    params = NeRFParams(params.mlp)
+    device = next(params.parameters()).device
+    put = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                                    device=device)
+    out = []
+    for start in range(0, resolution, chunk):
+        sl = slice(start, start + chunk)
+        omega = put(Omega if np.isscalar(Omega) else np.asarray(Omega)[sl])
+        out.append(predictor(params, t_frame, t_units, put(coords[:, sl]),
+                             omega, t_start_obs, 0.0, 0.0).cpu().numpy())
+    return np.concatenate(out, axis=0)

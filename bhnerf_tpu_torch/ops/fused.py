@@ -40,7 +40,8 @@ from bhnerf_tpu_torch.ops import _build
 TILE_N = 64
 # the kernels take MLP widths that are multiples of 16 up to MAX_WIDTH
 # (the forward's four 32-row units of output); the backward is bounded
-# by its shared memory, which render_bwd checks against the card
+# by its shared memory, which render_bwd checks against the card. The
+# wrappers zero-pad any other width up to the next multiple of 16
 MAX_WIDTH = 128
 
 
@@ -216,6 +217,64 @@ def _check_cuda_inputs(tensors, cfg, n):
                          f'of 16 up to {MAX_WIDTH}; got width {width}')
 
 
+def _pad_width(weights, biases, cfg):
+    """The MLP with its hidden width zero-padded to the next multiple of
+    16, which the kernels take. Padded units get zero weight rows and
+    zero biases, so they stay ReLU(0) = 0, and zero columns in the next
+    layer; the skip input [h, F] keeps F behind the padded h. Returns
+    (weights, biases, cfg) of the padded MLP; `_unpad_grads` takes its
+    gradients back to the caller's shapes. Widths above MAX_WIDTH raise:
+    the forward kernel tiles its output rows in four 32-row units and the
+    backward keeps a block's activations in shared memory, both sized for
+    at most 128 units."""
+    depth, width, do_skip = cfg
+    padded = _pad16(width)
+    if padded > MAX_WIDTH:
+        raise ValueError(
+            f'the fused CUDA kernels take net_width up to {MAX_WIDTH}; got '
+            f'width {width}: the forward tiles its output rows in four '
+            f'32-row units and the backward sizes its shared memory for '
+            f'{MAX_WIDTH} units (wider MLPs need both kernels redesigned)')
+    if padded == width:
+        return weights, biases, cfg
+    out_w, out_b = [], []
+    for i, (w, b) in enumerate(zip(weights, biases)):
+        rows = padded if i < depth else w.shape[0]
+        cols = _padded_columns(i, cfg, w.shape[1], padded).to(w.device)
+        wp = w.new_zeros((rows, w.shape[1] + (padded - width
+                                              if i > 0 else 0)))
+        wp[:w.shape[0], cols] = w
+        bp = b.new_zeros(rows)
+        bp[:b.shape[0]] = b
+        out_w.append(wp)
+        out_b.append(bp)
+    return out_w, out_b, (depth, padded, do_skip)
+
+
+def _padded_columns(i, cfg, n_in, padded):
+    """Indices of layer i's `n_in` input columns inside the input of the
+    MLP padded to hidden width `padded`: layer 0 reads F unchanged; a
+    later layer reads h (width units) at the front and, after the skip,
+    F behind the padded h."""
+    width = cfg[1]
+    if i == 0:
+        return torch.arange(n_in)
+    return torch.cat([torch.arange(width),
+                      torch.arange(padded, padded + n_in - width)])
+
+
+def _unpad_grads(gw, gb, weights, biases, cfg, padded):
+    """Gradients of the padded MLP back to the caller's shapes: the
+    entries of padded units and columns are dropped."""
+    if padded == cfg[1]:
+        return gw, gb
+    gw = [g[:w.shape[0], _padded_columns(i, cfg, w.shape[1], padded)
+            .to(g.device)].contiguous()
+          for i, (g, w) in enumerate(zip(gw, weights))]
+    gb = [g[:b.shape[0]].contiguous() for g, b in zip(gb, biases)]
+    return gw, gb
+
+
 def _pack_cuda(weights, biases, cfg, feat, bf16):
     """The kernels' parameter layout: every W_i (out, in) with `in`
     zero-padded to a multiple of 16, flat in layer order (rounded to bf16
@@ -249,6 +308,7 @@ def render_fwd(t_eff, coords, omega, tg, smask, weights, biases, cfg, scale,
                                 biases, cfg, scale, deg, compute_dtype, stash)
     if coords.device.type != 'cuda':
         raise ValueError(f'no fused kernel for device {coords.device}')
+    weights, biases, cfg = _pad_width(weights, biases, cfg)
     depth, width, do_skip = cfg
     nt, n = t_eff.shape[0], coords.shape[1]
     feat = 3 * (1 + 2 * deg)
@@ -289,6 +349,8 @@ def render_bwd(g_em, em, f_store, omega, weights, biases, cfg, deg,
                                 cfg, deg, compute_dtype, want_dt)
     if g_em.device.type != 'cuda':
         raise ValueError(f'no fused kernel for device {g_em.device}')
+    caller = weights, biases, cfg
+    weights, biases, cfg = _pad_width(weights, biases, cfg)
     depth, width, do_skip = cfg
     nt, n = g_em.shape
     feat = f_store.shape[0]
@@ -327,6 +389,7 @@ def render_bwd(g_em, em, f_store, omega, weights, biases, cfg, deg,
     for bi in biases:
         gb.append(grads[off:off + bi.numel()].view(bi.shape))
         off += bi.numel()
+    gw, gb = _unpad_grads(gw, gb, *caller, width)
     return gw, gb, d_t
 
 

@@ -1,7 +1,9 @@
 from bhnerf_tpu_torch.train.optimizer import (LogFn, Optimizer,
                                               TemporalBatchedArgs, TrainStep,
                                               total_movie_loss)
-from bhnerf_tpu_torch.train.state import TrainState, make_optimizer
+from bhnerf_tpu_torch.train.state import (TrainState, latest_checkpoint_step,
+                                          make_optimizer, restore_checkpoint,
+                                          restore_params, save_checkpoint)
 from bhnerf_tpu_torch.train.step import (CompactRayArgs, RayTracingArgs,
                                          compact_ensemble_args,
                                          compact_raytracing_args,

@@ -1,17 +1,19 @@
 """Training orchestration: the Optimizer loop, TrainStep, frame batching.
 
 PyTorch counterpart of `bhnerf_tpu/train/optimizer.py` without its
-scan-chunked loop, checkpoints and EHT step: `total_movie_loss` (:19-46),
-`Optimizer` with its per-step `run` loop and non-finite guard (:90-200),
-the composable `TrainStep` over one set of ray constants or a sub-pixel
-ensemble of them (:322-441), `TemporalBatchedArgs` (:483-575) and `LogFn`
-(:577). Frame batches and, for an ensemble, the variant of each gradient
-step are drawn on the host from the Optimizer's explicit
-`torch.Generator`; the full frame tensors live on the training device and
-each step selects its batch there, so a step uploads only its indices.
+scan-chunked loop and EHT step: `total_movie_loss` (:19-46), the SIGTERM
+scope `_GracefulShutdown` (:49-88), `Optimizer` with its checkpoints,
+per-step `run` loop and non-finite guard (:90-200, :317), the composable
+`TrainStep` over one set of ray constants or a sub-pixel ensemble of
+them (:322-441), `TemporalBatchedArgs` (:483-575) and `LogFn` (:577).
+Frame batches and, for an ensemble, the variant of each gradient step are
+drawn on the host from the Optimizer's explicit `torch.Generator`; the
+full frame tensors live on the training device and each step selects its
+batch there, so a step uploads only its indices.
 """
 from __future__ import annotations
 
+import signal
 import warnings
 
 import numpy as np
@@ -46,13 +48,56 @@ def total_movie_loss(batchsize, state, train_step, raytracing_args,
     return output
 
 
-class Optimizer:
-    """Gradient-descent loop (reference optimization.py:68-143)."""
+class _GracefulShutdown:
+    """SIGTERM-aware scope (reference optimizer.py:49-88): a preempted job
+    gets a SIGTERM and a grace period; the training loop polls
+    `requested` at step boundaries and checkpoints and returns instead of
+    dying mid-step. A no-op off the main thread, where a handler cannot
+    be installed."""
 
-    def __init__(self, hparams, predictor, raytracing_args, device='cuda'):
+    def __init__(self):
+        self.requested = False
+        self._prev = None
+        self._registered = False
+
+    def __enter__(self):
+        def handler(signum, frame):
+            self.requested = True
+
+        try:
+            # _prev may be None (a handler installed outside Python), so
+            # _registered, not _prev, records whether ours is in place
+            self._prev = signal.signal(signal.SIGTERM, handler)
+            self._registered = True
+        except ValueError:      # not the main thread
+            self._registered = False
+        return self
+
+    def __exit__(self, *exc):
+        if self._registered:
+            # a None _prev cannot be restored: SIG_DFL keeps later
+            # SIGTERMs terminating the process
+            signal.signal(signal.SIGTERM, self._prev if self._prev is not None
+                          else signal.SIG_DFL)
+        return False
+
+
+class Optimizer:
+    """Gradient-descent loop (reference optimization.py:68-143). With a
+    `checkpoint_dir` it resumes from the latest checkpoint there (the
+    step count and the learning-rate schedule continue from it), writes
+    the predictor's configuration beside it, and checkpoints every
+    `save_period` steps (at the last step when save_period < 0), keeping
+    the newest `keep`."""
+
+    def __init__(self, hparams, predictor, raytracing_args, save_period=-1,
+                 checkpoint_dir='', keep=5, device='cuda'):
         self.step = 0
         self.init_step = 0
         self.num_iters = hparams['num_iters']
+        self.checkpoint_dir = checkpoint_dir
+        self.save_period = self.num_iters if save_period < 0 else save_period
+        self.keep = keep
         self.loss = np.inf
         self.variant = 0
         self.seed = hparams.get('seed', 1)
@@ -68,10 +113,29 @@ class Optimizer:
             lr_final=hparams.get('lr_final', 1e-6),
             lr_inject=hparams.get('lr_inject'))
         self.state = state_lib.TrainState.create(params, tx)
+        if checkpoint_dir:
+            self.state = state_lib.restore_checkpoint(checkpoint_dir,
+                                                      self.state)
+            predictor.save_params(checkpoint_dir)
 
     def log(self):
         for log_fn in self.log_fns:
             log_fn(self)
+
+    def save_checkpoint(self, force=False):
+        """Checkpoint the state at the current step: every save_period
+        steps, at the run's last step, or when forced (reference
+        optimizer.py:121-126)."""
+        if self.checkpoint_dir and (
+                force or self.step % self.save_period == 0
+                or self.step == self.final_step - 1):
+            state_lib.save_checkpoint(self.checkpoint_dir, self.state,
+                                      self.step, keep=self.keep)
+
+    @property
+    def params(self):
+        """The trained parameters (the NeRFParams module of the state)."""
+        return self.state.params
 
     def run(self, batchsize, train_step, raytracing_args, log_fns=(),
             verbose=True, nan_check_period=1000):
@@ -79,7 +143,8 @@ class Optimizer:
         periodic non-finite-loss guard (checking every step would force a
         host sync per step). raytracing_args may be a list, a sub-pixel
         ray ensemble: each step then trains on one variant drawn from the
-        generator."""
+        generator. A SIGTERM checkpoints the current step and returns; a
+        KeyboardInterrupt returns (reference optimizer.py:178-200)."""
         self.init_step = self.state.step + 1
         self.final_step = self.init_step + self.num_iters
         self.log_fns = list(log_fns)
@@ -88,23 +153,41 @@ class Optimizer:
         report = max(1, self.num_iters // 10)
         num_variants = len(_as_list(raytracing_args))
 
-        for self.step in range(self.init_step, self.final_step):
-            batch = train_step.args[0].sample(batchsize, self.generator)
-            self.variant = (int(torch.randint(num_variants, (),
-                                              generator=self.generator))
-                            if num_variants > 1 else 0)
-            self.loss, self.state, images = train_step(
-                self.state, raytracing_args, indices=batch,
-                variant=self.variant)
-            if (nan_check_period and self.step % nan_check_period == 0
-                    and not torch.isfinite(self.loss).all()):
-                warnings.warn(f'non-finite loss at step {self.step}; '
-                              f'stopping')
-                return
-            self.log()
-            if verbose and (self.step - self.init_step + 1) % report == 0:
-                print(f'iteration {self.step}: loss {float(self.loss):.6g}',
-                      flush=True)
+        try:
+            with _GracefulShutdown() as shutdown:
+                for self.step in range(self.init_step, self.final_step):
+                    self._step(batchsize, train_step, raytracing_args,
+                               num_variants)
+                    if (nan_check_period
+                            and self.step % nan_check_period == 0
+                            and not torch.isfinite(self.loss).all()):
+                        warnings.warn(f'non-finite loss at step {self.step}; '
+                                      f'stopping (the last checkpoint is '
+                                      f'recoverable)')
+                        return
+                    self.log()
+                    self.save_checkpoint()
+                    if shutdown.requested:
+                        # preemption: persist this step and end the run;
+                        # a new Optimizer on checkpoint_dir resumes it
+                        self.save_checkpoint(force=True)
+                        return
+                    if verbose and \
+                            (self.step - self.init_step + 1) % report == 0:
+                        print(f'iteration {self.step}: loss '
+                              f'{float(self.loss):.6g}', flush=True)
+        except KeyboardInterrupt:
+            return
+
+    def _step(self, batchsize, train_step, raytracing_args, num_variants):
+        """One gradient step on a frame batch (and, for an ensemble, a
+        variant) drawn from the generator."""
+        batch = train_step.args[0].sample(batchsize, self.generator)
+        self.variant = (int(torch.randint(num_variants, (),
+                                          generator=self.generator))
+                        if num_variants > 1 else 0)
+        self.loss, self.state, _ = train_step(
+            self.state, raytracing_args, indices=batch, variant=self.variant)
 
 
 class TrainStep:

@@ -1,14 +1,24 @@
-"""Training state and the Adam + polynomial learning-rate schedule.
+"""Training state, the Adam + polynomial learning-rate schedule, and
+checkpoints.
 
-PyTorch counterpart of `bhnerf_tpu/train/state.py` (:30-83): Adam whose
-learning rate follows optax.polynomial_schedule(lr_init, lr_final, 1,
-num_iters), a linear decay counted from update 0, and optionally a
-separate constant learning rate for the learnable injection offset.
-Checkpoints are not ported yet.
+PyTorch counterpart of `bhnerf_tpu/train/state.py`: Adam whose learning
+rate follows optax.polynomial_schedule(lr_init, lr_final, 1, num_iters),
+a linear decay counted from update 0, optionally with a separate
+constant learning rate for the learnable injection offset (:30-83); and
+checkpoints in the reference's `checkpoint_<step>` directory layout
+(:109-215), written with torch.save instead of orbax: each directory
+holds one file of {'step', 'params' (state_dict), 'opt_state' (Adam's
+state_dict)} that loads under torch.load(weights_only=True). Single
+process: the reference's multi-host step-agreement check waits for the
+multi-GPU port.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import re
+import shutil
+from pathlib import Path
 
 import torch
 
@@ -78,3 +88,81 @@ class TrainState:
                 group['lr'] = self.tx.lr(self.step)
         self.opt.step()
         self.step += 1
+
+
+# ---------------------------------------------------------------------------
+# checkpoints
+# ---------------------------------------------------------------------------
+_CKPT_RE = re.compile(r'^checkpoint_(\d+)$')
+_CKPT_FILE = 'state.pt'
+
+
+def _checkpoint_steps(checkpoint_dir):
+    return sorted(int(m.group(1)) for p in Path(checkpoint_dir).iterdir()
+                  if (m := _CKPT_RE.match(p.name)))
+
+
+def latest_checkpoint_step(checkpoint_dir):
+    """The largest step with a `checkpoint_<step>` directory, or None."""
+    if not Path(checkpoint_dir).is_dir():
+        return None
+    steps = _checkpoint_steps(checkpoint_dir)
+    return steps[-1] if steps else None
+
+
+def save_checkpoint(checkpoint_dir, state: TrainState, step, keep=5):
+    """Save params, Adam state and step under checkpoint_<step>, then prune
+    all but the newest `keep` checkpoints (keep <= 0 keeps all;
+    reference state.py:119-151). The directory is written under a
+    temporary name and renamed, so a run killed mid-save leaves no
+    partial checkpoint."""
+    checkpoint_dir = Path(checkpoint_dir).absolute()
+    checkpoint_dir.mkdir(parents=True, exist_ok=True)
+    path = checkpoint_dir / f'checkpoint_{int(step)}'
+    tmp = checkpoint_dir / f'.checkpoint_{int(step)}.tmp'
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir()
+    torch.save({'step': int(state.step),
+                'params': state.params.state_dict(),
+                'opt_state': state.opt.state_dict()}, tmp / _CKPT_FILE)
+    shutil.rmtree(path, ignore_errors=True)
+    os.replace(tmp, path)
+    if keep > 0:
+        for old in _checkpoint_steps(checkpoint_dir)[:-keep]:
+            shutil.rmtree(checkpoint_dir / f'checkpoint_{old}',
+                          ignore_errors=True)
+
+
+def _load(checkpoint_dir, step):
+    return torch.load(Path(checkpoint_dir) / f'checkpoint_{step}' / _CKPT_FILE,
+                      map_location='cpu', weights_only=True)
+
+
+def restore_checkpoint(checkpoint_dir, state: TrainState):
+    """Load the latest checkpoint into `state` (params, Adam state and
+    step, each on the device of the state's parameters) and return it;
+    without a checkpoint, return `state` unchanged (reference
+    state.py:181-201)."""
+    step = latest_checkpoint_step(checkpoint_dir)
+    if step is None:
+        return state
+    payload = _load(checkpoint_dir, step)
+    state.params.load_state_dict(payload['params'])
+    state.opt.load_state_dict(payload['opt_state'])
+    state.step = int(payload['step'])
+    return state
+
+
+def restore_params(checkpoint_dir, params_template=None):
+    """The params of the latest checkpoint (reference state.py:204-215): a
+    state_dict on the host, or, given a NeRFParams module, that module
+    with the state_dict loaded into it. Raises FileNotFoundError when
+    there is no checkpoint."""
+    step = latest_checkpoint_step(checkpoint_dir)
+    if step is None:
+        raise FileNotFoundError(f'no checkpoint under {checkpoint_dir}')
+    params = _load(checkpoint_dir, step)['params']
+    if params_template is None:
+        return params
+    params_template.load_state_dict(params)
+    return params_template

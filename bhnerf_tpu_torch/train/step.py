@@ -60,11 +60,18 @@ class RayTracingArgs:
 
     @property
     def num_stokes(self):
-        return self.J.shape[0] if isinstance(self.J, torch.Tensor) else 1
+        return self.J.shape[0] if _ndim(self.J) > 0 else 1
 
     def frame_times_M(self, t_frames):
         """Observation times -> M units relative to t_start_obs."""
         return (t_frames - self.t_start_obs) * self.t_to_M
+
+
+def _ndim(J):
+    """Number of dimensions of a Stokes factor J. A scalar J may arrive as
+    a float, a 0-d numpy array or a 0-d tensor (reference step.py:67,
+    :279-287)."""
+    return J.ndim if isinstance(J, torch.Tensor) else np.ndim(J)
 
 
 def raytracing_args(geos, Omega, t_injection, t_start_obs, J=1.0,
@@ -88,7 +95,7 @@ def raytracing_args(geos, Omega, t_injection, t_start_obs, J=1.0,
     return RayTracingArgs(
         coords=as_t(np.stack([geos.x, geos.y, geos.z], axis=0)),
         Omega=as_t(Omega),
-        J=float(J) if np.isscalar(J) else as_t(J),
+        J=float(J) if _ndim(J) == 0 else as_t(J),
         g=as_t(g),
         dtau=as_t(geos.dtau),
         Sigma=as_t(geos.Sigma),
@@ -203,7 +210,8 @@ def compact_raytracing_args(rt: RayTracingArgs, predictor, tile=None,
       slots (about a fifth of them inert filler that still goes through
       the MLP), so the reduce needs no gather and its backward gathers
       per group.
-    * 'auto': 'native' for multi-Stokes weights, 'gather' otherwise.
+    * 'auto': 'gather' (the reference takes 'native' for multi-Stokes
+      weights).
     """
     if tile is None:
         tile = fused_lib.TILE_N
@@ -220,14 +228,18 @@ def compact_raytracing_args(rt: RayTracingArgs, predictor, tile=None,
     npix = na * nb
     w_all = (host(rt.g) ** 2 * host(rt.dtau)
              * host(rt.Sigma)).reshape(-1)[idx]
-    polarized = isinstance(rt.J, torch.Tensor)
+    polarized = _ndim(rt.J) > 0
     if polarized:
         W_all = host(rt.J).reshape(rt.J.shape[0], -1)[:, idx] * w_all
     else:
-        W_all = (w_all * rt.J)[None]
+        W_all = (w_all * float(rt.J))[None]
 
+    # 'auto' is 'gather' on the card: the reference picks 'native' for
+    # multi-Stokes weights because a gathered row costs the TPU ~15
+    # cycles; on the H100 'native' spends more kernel time on its filler
+    # than the gather costs
     if layout == 'auto':
-        layout = 'native' if W_all.shape[0] > 1 else 'gather'
+        layout = 'gather'
     if layout not in ('native', 'gather'):
         raise ValueError(f'unknown layout {layout!r}')
 

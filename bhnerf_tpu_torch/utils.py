@@ -1,12 +1,110 @@
-"""Array utilities needed by the velocity warp (rotations, broadcasting).
+"""Array utilities: metrics, grids, rotations, broadcasting.
 
-PyTorch counterpart of the main-path subset of `bhnerf_tpu/utils.py`:
-`rotation_matrix` and `expand_dims`. The rest of that module (grids,
-random fields, FFT helpers) is not ported yet.
+PyTorch counterpart of a subset of `bhnerf_tpu/utils.py`: `mse`, `psnr`,
+`normalize`, the `Grid3D` container, `linspace_grid`, `gaussian_field`,
+`rotation_matrix`, `world_to_image_coords` and `expand_dims`. The rest of
+that module (random fields, FFT helpers, `expand_3d`) is not ported yet.
 """
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
+
+
+def mse(true, est):
+    """Mean squared error, with numpy on the host (reference utils.py:52)."""
+    return float(np.mean((_numpy(true) - _numpy(est)) ** 2))
+
+
+def psnr(true, est):
+    """Peak SNR in dB (reference utils.py:57)."""
+    return float(10.0 * np.log10(np.max(_numpy(true)) ** 2
+                                 / mse(true, est)))
+
+
+def _numpy(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def normalize(vector):
+    vector = np.asarray(vector, dtype=np.float64)
+    return vector / np.sqrt(np.dot(vector, vector))
+
+
+@dataclasses.dataclass
+class Grid3D:
+    """A scalar field sampled on a regular grid (reference utils.py:72-139,
+    the stand-in for the original's xarray fields). `data` is a tensor of
+    shape (nx, ny, nz), or (nt, nx, ny, nz) for a movie; the grid spans
+    [start, stop] along each axis with linspace coordinates (endpoint
+    included)."""
+
+    data: torch.Tensor
+    start: tuple
+    stop: tuple
+
+    @property
+    def spatial_ndim(self):
+        return len(self.start)
+
+    @property
+    def spatial_shape(self):
+        return tuple(self.data.shape[-self.spatial_ndim:])
+
+    @property
+    def fov(self):
+        return tuple(sp - st for st, sp in zip(self.start, self.stop))
+
+    def coord_1d(self, axis):
+        n = self.spatial_shape[axis]
+        return np.linspace(self.start[axis], self.stop[axis], n)
+
+    def integrate(self):
+        """Volume integral by the trapezoid rule, innermost axis first, in
+        the dtype of `data` (reference utils.py:120-126)."""
+        out = self.data
+        for axis in reversed(range(self.spatial_ndim)):
+            coord = torch.as_tensor(self.coord_1d(axis), dtype=out.dtype,
+                                    device=out.device)
+            out = torch.trapezoid(out, coord, dim=-1)
+        return out
+
+    def __mul__(self, other):
+        return Grid3D(self.data * other, self.start, self.stop)
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return Grid3D(self.data / other, self.start, self.stop)
+
+
+def linspace_grid(num, start=-0.5, stop=0.5):
+    """N-d meshgrid coordinates (reference utils.py:141-148): a list of
+    len(num) numpy arrays, each shaped like `num`."""
+    num = np.atleast_1d(num)
+    axes = [np.linspace(start, stop, int(n)) for n in num]
+    return np.meshgrid(*axes, indexing='ij')
+
+
+def gaussian_field(resolution, center, std, fov=1.0, std_clip=np.inf):
+    """Gaussian blob on a regular grid (reference utils.py:151-165):
+    computed in float64 with numpy and cast to a float32 tensor on the
+    host, as the reference's jnp.asarray casts it."""
+    resolution = tuple(int(n) for n in np.atleast_1d(resolution))
+    if np.isscalar(std):
+        std = (std,) * len(resolution)
+    if len(resolution) != len(center):
+        raise ValueError('resolution and center must have the same length')
+    coords = linspace_grid(resolution, -fov / 2.0, fov / 2.0)
+    r2 = sum(((c - mu) / s) ** 2 for c, mu, s in zip(coords, center, std))
+    data = np.exp(-0.5 * r2)
+    data = np.where(data > np.exp(-0.5 * std_clip**2), data, 0.0)
+    start = (-fov / 2.0,) * len(resolution)
+    stop = (fov / 2.0,) * len(resolution)
+    return Grid3D(torch.as_tensor(data, dtype=torch.float32), start, stop)
 
 
 def rotation_matrix(axis, angle):
@@ -31,6 +129,14 @@ def rotation_matrix(axis, angle):
     row1 = torch.stack([2 * (bc - ad), aa + cc - bb - dd, 2 * (cd + ab)])
     row2 = torch.stack([2 * (bd + ac), 2 * (cd - ab), aa + dd - bb - cc])
     return torch.stack([row0, row1, row2])
+
+
+def world_to_image_coords(coords, fov, npix):
+    """World coordinates (..., d) -> fractional grid indices (..., d)
+    (reference utils.py:209-215)."""
+    return torch.stack([(coords[..., i] + fov[i] / 2.0) / fov[i]
+                        * (npix[i] - 1) for i in range(coords.shape[-1])],
+                       dim=-1)
 
 
 def expand_dims(x, ndim, axis=0):

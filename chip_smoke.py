@@ -1,7 +1,8 @@
 """GPU smoke run of bhnerf_tpu_torch: build the kernels, hold them against
-their plain versions at the shapes of both training paths, and train a
-few steps of the Tutorial-3 image fit and of the ALMA polarized-lightcurve
-fit at full width on one CUDA device.
+their plain versions at the shapes of the training paths, train a few
+steps of the Tutorial-3 image fit and of the ALMA polarized-lightcurve fit
+at full width, and recover a synthetic hotspot in 1000 steps, on one CUDA
+device.
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 nvcc:
@@ -11,8 +12,9 @@ nvcc:
 Phases (any failure raises and exits non-zero):
   1. device: requires CUDA, prints the card's name and power limit;
   2. build: compiles csrc/*.cu for sm_90a and prints the build seconds;
-  3. host precompute: f64 geodesics (64x64 rays x 100 samples), ray
-     constants, domain compaction (the 'gather' layout);
+  3. host precompute: f64 geodesics (64x64 rays x 100 samples, a table
+     the recovery phase reuses), ray constants, domain compaction (the
+     'gather' layout);
   4. kernels vs plain versions at the compacted sample count N and a
      6-frame batch: forward in f32 and bf16 (with and without the stash,
      and at a sample count that is no multiple of its 128-column tile),
@@ -35,9 +37,20 @@ Phases (any failure raises and exits non-zero):
      a test step over the ensemble, the polarized 'full' image loss
      through the 'native' reduce against the segment sum and 20 steps of
      it in each layout, the cost of the aux-image reduce, and a profile
-     of 10 ALMA steps per layout.
-The line before the last is the JSON kernel summary; the last line is
-{"ok": true, "device": {...}}.
+     of 10 ALMA steps per layout;
+  8. the recovery fit of bench_recovery.py on the Tutorial-3 geometry's
+     table: a hotspot at 1.1 r_isco rendered into a 64-frame movie by
+     emission.image_plane_dynamics on the card, then 1000 steps of the
+     'full' image fit (rmin 0, batch 6, lr 1e-3 -> 1e-5) in float32 and in
+     bfloat16, each held to the bar of RECOVERY_MIN_PSNR dB of psnr_3d
+     (sample_3d_grid at 64^3 against the hotspot) and
+     RECOVERY_MAX_LC_ERR_PCT of lc_err_pct, with one forward and one
+     backward launch per step; the float32 fit checkpoints every 500
+     steps, and restore_params, a resumed Optimizer and keep pruning are
+     checked against it; both kernels against their plain versions at the
+     fit's sample count.
+The two lines before the last are the JSON recovery summary and the JSON
+kernel summary; the last line is {"ok": true, "device": {...}}.
 """
 import dataclasses
 import json
@@ -56,6 +69,7 @@ N_FINE = 4096           # pass-1 fine steps of the geodesic tracer
 NT = 64                 # movie frames
 BATCH = 6               # frames per step
 FOV = 16.0
+SPIN = 0.2
 STEPS = 20
 REPEATS = 20            # launches per timing
 ALMA_RAYS = 4           # sub-pixel ray tables in the ALMA ensemble
@@ -68,6 +82,17 @@ ALMA_MODEL = {
     'Omega_dir': 'cw', 'Omega_frac': 1.0, 'num_alpha': NUM_RAYS,
     'num_beta': NUM_RAYS, 't_start_obs': 9.34056333326589,
     'ngeo': NGEO, 'n_fine': N_FINE}
+# the recovery fit of bench_recovery.py:75-183: 1000 iterations of batch
+# BATCH over NT frames of an hour, a hotspot and evaluation grid of
+# RECOVERY_RES^3, checkpoints every RECOVERY_SAVE_PERIOD steps in float32
+RECOVERY_STEPS = 1000
+RECOVERY_RES = 64
+RECOVERY_SAVE_PERIOD = 500
+# the bar, set before the first run on the card (PERF.md): the reference
+# reached 62.91 dB and 0.0883% in bfloat16 (RECOVERY.json); a field of
+# zeros scores 33.1 dB against this hotspot
+RECOVERY_MIN_PSNR = 55.0
+RECOVERY_MAX_LC_ERR_PCT = 0.5
 # published dense peaks of one H100 SXM (NVIDIA's data sheet): TF32 tensor
 # cores and HBM3
 TF32_FLOPS = 495e12
@@ -139,13 +164,15 @@ def bound(kind, cfg, feat, nt, n, n_params, compute_dtype, want_dt=False):
 
 
 def host_precompute(device):
+    """The Tutorial-3 geometry's geodesic table and the main path's
+    compacted ray constants. Returns (geos, predictor, crt, t_frames)."""
     from bhnerf_tpu_torch import constants, units
     from bhnerf_tpu_torch.geodesics import image_plane_geos
     from bhnerf_tpu_torch.models.fields import NeRFPredictor
     from bhnerf_tpu_torch.train.step import (compact_raytracing_args,
                                              raytracing_args)
     t0 = time.perf_counter()
-    geos = image_plane_geos(spin=0.2, inclination=np.deg2rad(60.0),
+    geos = image_plane_geos(spin=SPIN, inclination=np.deg2rad(60.0),
                             alpha_range=(-FOV / 2, FOV / 2),
                             beta_range=(-FOV / 2, FOV / 2), ngeo=NGEO,
                             num_alpha=NUM_RAYS, num_beta=NUM_RAYS,
@@ -169,7 +196,7 @@ def host_precompute(device):
         f'(n_fine {N_FINE}, f64) in {t_geo:.1f} s; compacted '
         f'{n_in}/{n_dense} samples ({100 * n_in / n_dense:.1f}%), padded '
         f'N = {crt.coords.shape[1]}')
-    return predictor, crt, t_frames
+    return geos, predictor, crt, t_frames
 
 
 def kernel_inputs(predictor, crt, t_frames, rng, device):
@@ -790,6 +817,234 @@ def alma_phase(kernels, device):
             entry['alma_stash_ms'] = native['ms']['fwd_stash']
 
 
+def recovery_target(geos, device):
+    """The ground truth of bench_recovery.py:99-120: a hotspot at 1.1
+    r_isco with std 0.7 on a RECOVERY_RES^3 grid over the field of view,
+    and its movie of NT frames over an hour rendered on the card by
+    emission.image_plane_dynamics. Returns (hotspot, t_frames,
+    t_injection, movie)."""
+    import torch
+    from bhnerf_tpu_torch import constants, emission, units, utils
+
+    r_isco = float(constants.isco_pro(SPIN))
+    hotspot = emission.generate_hotspot(
+        resolution=(RECOVERY_RES,) * 3, rot_axis=[0, 0, 1], rot_angle=0.0,
+        orbit_radius=1.1 * r_isco, std=0.7, r_isco=r_isco, fov=FOV)
+    t_frames = units.Quantity(np.linspace(0.0, 1.0, NT), 'hr')
+    t_injection = -float(geos.r_o + FOV / 4)
+    t0 = time.perf_counter()
+    movie = emission.image_plane_dynamics(
+        hotspot, geos, geos.keplerian_omega(), t_frames, t_injection,
+        device=device)
+    torch.cuda.synchronize()
+    t_render = time.perf_counter() - t0
+    movie = movie.cpu().numpy()
+    lc = movie.sum(axis=(-1, -2))
+    zero_psnr = utils.psnr(hotspot.data, np.zeros(hotspot.data.shape))
+    log(f'recovery target: hotspot {RECOVERY_RES}^3 at r = {1.1 * r_isco:.3f}'
+        f' (1.1 r_isco), integral {float(hotspot.integrate()):.6f}; movie '
+        f'{movie.shape} rendered on the card in {t_render:.2f} s, lightcurve '
+        f'{lc.min():.4g}..{lc.max():.4g}; a field of zeros scores '
+        f'{zero_psnr:.2f} dB')
+    if movie.shape != (NT, NUM_RAYS, NUM_RAYS) or not np.isfinite(movie).all() \
+            or not lc.min() > 0:
+        raise RuntimeError(f'bad ground-truth movie {movie.shape}')
+    return hotspot, t_frames, t_injection, movie
+
+
+def recovery_kernel_checks(predictor, crt, t_frames, device):
+    """Both kernels against their plain versions at the recovery fit's
+    sample count (f32, a 6-frame batch), with their times and bounds."""
+    import torch
+    from bhnerf_tpu_torch.ops import fused
+
+    n = crt.coords.shape[1]
+    common = kernel_inputs(predictor, crt, t_frames, np.random.default_rng(4),
+                           device)
+    _, _, omega, _, _, weights, biases, cfg, _, deg = common
+    em_k, f_k = fused.render_fwd(*common, 'float32', stash=True)
+    em_p, f_p = fused.render_fwd_plain(*common, 'float32', stash=True)
+    target = torch.as_tensor(np.random.default_rng(5).random(em_p.shape),
+                             dtype=torch.float32, device=device)
+    g_em = (2.0 * (em_p - target)).contiguous()
+    bwd_args = (em_p, f_p, omega, weights, biases, cfg, deg, 'float32')
+    gk = fused.render_bwd(g_em, *bwd_args)
+    gp = fused.render_bwd_plain(g_em, *bwd_args)
+    torch.cuda.synchronize()
+    fwd_err = float((em_k - em_p).abs().max())
+    bwd_err, norm_err = grad_errors(gp, gk)
+    if not torch.allclose(em_k, em_p, atol=2e-6, rtol=1e-4) \
+            or float((f_k - f_p).abs().max()) > 1e-5 or norm_err > 5e-5:
+        raise RuntimeError(f'recovery N = {n}: kernels disagree with their '
+                           f'plain versions (emission {fwd_err:.3e}, '
+                           f'gradients {norm_err:.3e} normalised)')
+    n_params = sum(w.numel() + b.numel() for w, b in zip(weights, biases))
+    out = {}
+    for kind, err, run, plain in (
+            ('fwd', fwd_err, lambda: fused.render_fwd(*common, 'float32'),
+             lambda: fused.render_fwd_plain(*common, 'float32')),
+            ('bwd', bwd_err, lambda: fused.render_bwd(g_em, *bwd_args),
+             lambda: fused.render_bwd_plain(g_em, *bwd_args))):
+        ms, plain_ms = cuda_ms(run), cuda_ms(plain)
+        b_ms, b_by, _ = bound(kind, cfg, f_p.shape[0], BATCH, n, n_params,
+                              'float32')
+        out[kind] = dict(err=err, ms=ms, plain_ms=plain_ms, bound=(b_ms, b_by))
+        tol = (f'normalised {norm_err:.3e}, atol 5e-5' if kind == 'bwd'
+               else 'atol 2e-6, rtol 1e-4')
+        log(f'recovery N = {n}, {kind}: max|kernel - plain| = {err:.3e} '
+            f'({tol}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound '
+            f'{b_ms:.3f} ms ({b_by}), kernel at {100 * b_ms / ms:.1f}% of it')
+    return out
+
+
+def recovery_fit(compute_dtype, geos, hotspot, t_frames, t_injection, movie,
+                 device, checkpoint_dir=''):
+    """The recovery fit of bench_recovery.py:121-183 through the port's
+    entry points: NeRFPredictor(scale 8, rmin 0, rmax 8, z_width 2)
+    compacted in the 'gather' layout, TrainStep.image(dtype='full',
+    fused=True), Adam at lr 1e-3 -> 1e-5 for RECOVERY_STEPS steps of batch
+    BATCH in the per-step loop; then the volume PSNR on a RECOVERY_RES^3
+    grid and the lightcurve error of the whole movie. Returns (result,
+    optimizer, train_step, crt, launches)."""
+    import torch
+    from bhnerf_tpu_torch import utils
+    from bhnerf_tpu_torch.models.fields import NeRFPredictor, sample_3d_grid
+    from bhnerf_tpu_torch.ops import fused
+    from bhnerf_tpu_torch.train.optimizer import (Optimizer, TrainStep,
+                                                  total_movie_loss)
+    from bhnerf_tpu_torch.train.step import (compact_raytracing_args,
+                                             raytracing_args)
+
+    predictor = NeRFPredictor(scale=FOV / 2, rmin=0.0, rmax=FOV / 2,
+                              z_width=2.0, compute_dtype=compute_dtype)
+    rt = raytracing_args(geos, geos.keplerian_omega(), t_injection,
+                         t_frames[0], device=device)
+    crt = compact_raytracing_args(rt, predictor, layout='gather')
+    train_step = TrainStep.image(t_frames, movie, predictor, dtype='full',
+                                 fused=True, device=device)
+    opt = Optimizer({'num_iters': RECOVERY_STEPS, 'lr_init': 1e-3,
+                     'lr_final': 1e-5}, predictor, crt,
+                    save_period=RECOVERY_SAVE_PERIOD,
+                    checkpoint_dir=checkpoint_dir, keep=1, device=device)
+    fused.render_fwd.launches = 0
+    fused.render_bwd.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt.run(BATCH, train_step, crt, verbose=False)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = (fused.render_fwd.launches, fused.render_bwd.launches)
+
+    vol = sample_3d_grid(predictor, opt.params, fov=FOV,
+                         resolution=RECOVERY_RES)
+    psnr_3d = utils.psnr(hotspot.data, vol)
+    _, frames = total_movie_loss(8, opt.state, train_step, crt,
+                                 return_frames=True)
+    lc_rec, lc_true = frames.sum(axis=(-1, -2)), movie.sum(axis=(-1, -2))
+    lc_err_pct = float(100.0 * np.mean(np.abs(lc_rec - lc_true))
+                       / np.mean(lc_true))
+    result = {'psnr_3d': psnr_3d, 'lc_err_pct': lc_err_pct, 'wall_s': wall_s,
+              'steps_per_s': RECOVERY_STEPS / wall_s,
+              'n': crt.coords.shape[1], 'steps': opt.state.step,
+              'final_loss': float(opt.loss)}
+    n_in = int((crt.t_geos_rel > -1e29).sum())
+    log(f'recovery fit, {compute_dtype}: {RECOVERY_STEPS} steps of batch '
+        f'{BATCH} at N = {result["n"]} ({n_in} samples in the domain) in '
+        f'{wall_s:.2f} s '
+        f'({result["steps_per_s"]:.2f} steps/s, checkpoints '
+        f'{"every " + str(RECOVERY_SAVE_PERIOD) if checkpoint_dir else "off"}'
+        f'); launches fwd {launches[0]}, bwd {launches[1]}; final loss '
+        f'{result["final_loss"]:.6g}; psnr_3d {psnr_3d:.2f} dB (bar '
+        f'{RECOVERY_MIN_PSNR}), lc_err_pct {lc_err_pct:.4f} (bar '
+        f'{RECOVERY_MAX_LC_ERR_PCT}); the reference: 62.91 dB, 0.0883% '
+        f'(bfloat16)')
+    if launches != (RECOVERY_STEPS, RECOVERY_STEPS):
+        raise RuntimeError(f'recovery fit ({compute_dtype}) launched '
+                           f'{launches}, not one forward and one backward '
+                           f'per step')
+    if frames.shape != movie.shape or not np.isfinite(frames).all() \
+            or vol.shape != (RECOVERY_RES,) * 3:
+        raise RuntimeError(f'recovery fit ({compute_dtype}): bad outputs '
+                           f'{frames.shape}, {vol.shape}')
+    if not psnr_3d >= RECOVERY_MIN_PSNR \
+            or not lc_err_pct <= RECOVERY_MAX_LC_ERR_PCT:
+        raise RuntimeError(f'recovery fit ({compute_dtype}) missed the bar: '
+                           f'{psnr_3d:.2f} dB, {lc_err_pct:.4f}%')
+    return result, opt, train_step, crt, launches
+
+
+def recovery_checkpoint_checks(opt, crt, checkpoint_dir, device):
+    """The float32 fit's checkpoints: restore_params equals
+    Optimizer.params bitwise; a fresh Optimizer on the directory reports
+    the last step with bitwise the same Adam state; keep=1 left only the
+    last checkpoint, beside the predictor's yaml."""
+    import torch
+    from bhnerf_tpu_torch.train.optimizer import Optimizer
+    from bhnerf_tpu_torch.train.state import restore_params
+
+    saved = restore_params(checkpoint_dir)
+    live = opt.params.state_dict()
+    if saved.keys() != live.keys() or not all(
+            torch.equal(saved[k], v.cpu()) for k, v in live.items()):
+        raise RuntimeError('restore_params differs from Optimizer.params')
+    resumed = Optimizer({'num_iters': RECOVERY_STEPS, 'lr_init': 1e-3,
+                         'lr_final': 1e-5}, opt.predictor, crt,
+                        checkpoint_dir=checkpoint_dir, device=device)
+    a, b = opt.state.opt.state_dict(), resumed.state.opt.state_dict()
+    same_adam = a['state'].keys() == b['state'].keys() and all(
+        torch.equal(a['state'][i][k].cpu(), b['state'][i][k].cpu())
+        for i in a['state'] for k in ('step', 'exp_avg', 'exp_avg_sq'))
+    left = sorted(p.name for p in os.scandir(checkpoint_dir))
+    log(f'recovery checkpoints: restore_params equals Optimizer.params '
+        f'bitwise; a fresh Optimizer resumes at step {resumed.state.step} '
+        f'with {"bitwise the same" if same_adam else "a DIFFERENT"} Adam '
+        f'state; the directory holds {left}')
+    if resumed.state.step != RECOVERY_STEPS or not same_adam:
+        raise RuntimeError('the resumed Optimizer differs from the saved one')
+    if left != sorted([f'checkpoint_{RECOVERY_STEPS}',
+                       'NeRF_Predictor_params.yml']):
+        raise RuntimeError(f'keep=1 left {left}')
+
+
+def recovery_phase(kernels, geos, device):
+    """The Tutorial-3 recovery of bench_recovery.py on the card, in float32
+    (with checkpoints) and bfloat16: ground truth, fit, psnr_3d and
+    lc_err_pct against the bar. Fills the recovery keys of the JSON kernel
+    entries and returns the recovery summary."""
+    import tempfile
+
+    hotspot, t_frames, t_injection, movie = recovery_target(geos, device)
+    fit = lambda compute_dtype, ckpt='': recovery_fit(
+        compute_dtype, geos, hotspot, t_frames, t_injection, movie, device,
+        ckpt)
+    runs = {}
+    with tempfile.TemporaryDirectory() as ckpt:
+        runs['float32'] = fit('float32', ckpt)
+        _, opt, _, crt, _ = runs['float32']
+        recovery_checkpoint_checks(opt, crt, ckpt, device)
+        opt.checkpoint_dir = ''
+    runs['bfloat16'] = fit('bfloat16')
+    # the fit's loop synchronises only at its end: the device's busy
+    # share against that loop's step time
+    for compute_dtype, (result, opt, train_step, crt, _) in runs.items():
+        profile_path(f'recovery {compute_dtype}', opt, train_step, crt,
+                     1e3 / result['steps_per_s'])
+    # both fits compact the same samples
+    checks = recovery_kernel_checks(opt.predictor, crt,
+                                    np.asarray(t_frames.value, np.float32),
+                                    device)
+    for i, (entry, kind) in enumerate(zip(kernels, ('fwd', 'bwd'))):
+        c = checks[kind]
+        entry.update({
+            'recovery_n': crt.coords.shape[1],
+            'recovery_launches': {k: run[4][i] for k, run in runs.items()},
+            'recovery_max_abs_err': c['err'], 'recovery_ms': c['ms'],
+            'recovery_plain_ms': c['plain_ms'],
+            'recovery_bound_ms': c['bound'][0],
+            'recovery_bound_by': c['bound'][1]})
+    return {k: run[0] for k, run in runs.items()}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -821,15 +1076,17 @@ def main():
             elif 'registers' in line or 'spill' in line:
                 log(f'  ptxas: {line.strip()}')
 
-    predictor, crt, t_frames = host_precompute(device)
+    geos, predictor, crt, t_frames = host_precompute(device)
     kernels = kernel_checks(predictor, crt, t_frames, device)
     launches, opt, train_step, step_ms = train_main_path(
         predictor, crt, t_frames, device)
     profile_path('Tutorial-3', opt, train_step, crt, step_ms)
     alma_phase(kernels, device)
+    recovery = recovery_phase(kernels, geos, device)
     for entry, count in zip(kernels, launches):
         entry['launches'] = count
         entry['launches_per_step'] = count / STEPS
+    print(json.dumps({'recovery': recovery}), flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -400,13 +400,15 @@ def test_ensemble_shapes_uniform(setup, layout):
 
 
 def test_auto_layout_chooses_as_jax(setup):
-    """'auto' is 'native' for multi-Stokes weights and 'gather' for a
-    scalar J, as in the reference; an unknown layout raises."""
+    """'auto' is 'gather' in the port for multi-Stokes weights, where the
+    reference takes 'native' (a TPU workaround left behind), and 'gather'
+    for a scalar J in both; an unknown layout raises."""
     s = setup
     rt, j_rt = s['rts'][0], s['j_rts'][0]
     crt = step.compact_raytracing_args(rt, s['pred'])
     j_crt = j_step.compact_raytracing_args(j_rt, s['jpred'], tile=TILE)
-    assert crt.red_gather is None and j_crt.red_gather is None
+    assert crt.red_gather is not None and j_crt.red_gather is None
+    assert crt.polarized and crt.num_stokes == 3
     rt1 = dataclasses.replace(rt, J=1.0)
     j_rt1 = dataclasses.replace(j_rt, J=1.0)
     crt1 = step.compact_raytracing_args(rt1, s['pred'])

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from bhnerf_tpu_torch import emission, units
+from bhnerf_tpu_torch.geodesics import image_plane_geos
 from bhnerf_tpu_torch.models.fields import NeRFPredictor
 from bhnerf_tpu_torch.ops import fused
 from bhnerf_tpu_torch.train import step
@@ -308,3 +310,157 @@ def test_native_reduce_matches_segment_sum_on_card(cuda_device):
     np.testing.assert_allclose(outs[0][1], analytic, rtol=1e-5, atol=1e-5)
     filler = (crt.t_geos_rel < -1e29).cpu().numpy()
     assert (outs[0][1][:, filler] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('width,depth', [(48, 4), (100, 4), (120, 4),
+                                         (100, 2)])
+def test_padded_widths_match_plain_on_card(cuda_device, width, depth):
+    """Widths that are no multiple of 16 run both kernels on an MLP
+    zero-padded to the next multiple: emission atol 2e-6 / rtol 1e-4 and
+    gradients atol 5e-5 normalised against the plain versions of the
+    unpadded MLP, d_t rtol 2e-3, including the skip layer whose h is
+    padded (layer 3 of 4, the head of 2); each call launches its kernel
+    once. Through the autograd Function, a width-100 loss launches one
+    forward and one backward and its gradients match the plain path's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(2)
+    args = _forward_inputs(cuda_device, rng, width, depth, 3, 192,
+                           'float32')
+    _, _, omega, _, _, weights, biases, cfg, _, deg, _ = args
+    launches = (fused.render_fwd.launches, fused.render_bwd.launches)
+    em_k, f_k = fused.render_fwd(*args, stash=True)
+    em_p, f_p = fused.render_fwd_plain(*args, stash=True)
+    g = torch.as_tensor(rng.standard_normal(em_p.shape), dtype=torch.float32,
+                        device=cuda_device)
+    gk = fused.render_bwd(g, em_p, f_p, omega, weights, biases, cfg, deg,
+                          'float32', True)
+    gp = fused.render_bwd_plain(g, em_p, f_p, omega, weights, biases, cfg,
+                                deg, 'float32', True)
+    torch.cuda.synchronize()
+    assert (fused.render_fwd.launches - launches[0],
+            fused.render_bwd.launches - launches[1]) == (1, 1)
+    assert float(em_p.max()) > 0.01
+    np.testing.assert_allclose(em_k.cpu().numpy(), em_p.cpu().numpy(),
+                               atol=2e-6, rtol=1e-4)
+    np.testing.assert_allclose(f_k.cpu().numpy(), f_p.cpu().numpy(),
+                               atol=1e-5, rtol=0)
+    for a, b in zip(gp[0] + gp[1], gk[0] + gk[1]):
+        assert a.shape == b.shape
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        scale = np.abs(a).max() + 1e-8
+        np.testing.assert_allclose(b / scale, a / scale, atol=5e-5)
+    np.testing.assert_allclose(gk[2].cpu().numpy(), gp[2].cpu().numpy(),
+                               rtol=2e-3, atol=1e-6)
+
+    if width != 100 or depth != 4:
+        return
+    pred = NeRFPredictor(scale=8.0, net_depth=depth, net_width=width)
+    t_eff, coords, omega, tg, smask = args[:5]
+    grads = []
+    for on_card in (True, False):
+        params = pred.init_params(generator=torch.Generator().manual_seed(3),
+                                  device=cuda_device)
+        with torch.no_grad():
+            params.mlp.layers[-1].bias += 8.0
+        before = (fused.render_fwd.launches, fused.render_bwd.launches)
+        if on_card:
+            em = fused.fused_render(params, coords, omega, tg, smask, t_eff,
+                                    cfg, 8.0, deg)
+        else:
+            w, b = fused.pack_params(params)
+            em = _PlainRender.apply(t_eff, coords, omega, tg, smask, cfg,
+                                    deg, *w, *b)
+        (em * g).sum().backward()
+        after = (fused.render_fwd.launches, fused.render_bwd.launches)
+        assert (after[0] - before[0], after[1] - before[1]) == \
+            ((1, 1) if on_card else (0, 0))
+        grads.append([p.grad.cpu().numpy() for p in params.parameters()])
+    for a, b in zip(grads[1], grads[0]):
+        scale = np.abs(a).max() + 1e-8
+        np.testing.assert_allclose(b / scale, a / scale, atol=5e-5)
+
+
+class _PlainRender(torch.autograd.Function):
+    """The plain versions of both kernels as an autograd Function: the
+    reference the card's fused path is held to."""
+
+    @staticmethod
+    def forward(ctx, t_eff, coords, omega, tg, smask, cfg, deg, *tensors):
+        n_layers = cfg[0] + 1
+        weights, biases = tensors[:n_layers], tensors[n_layers:]
+        em, f_store = fused.render_fwd_plain(t_eff, coords, omega, tg, smask,
+                                             weights, biases, cfg, 8.0, deg,
+                                             stash=True)
+        ctx.cfg, ctx.deg = cfg, deg
+        ctx.save_for_backward(em, f_store, omega, *tensors)
+        return em
+
+    @staticmethod
+    def backward(ctx, g_em):
+        em, f_store, omega, *tensors = ctx.saved_tensors
+        n_layers = ctx.cfg[0] + 1
+        gw, gb, _ = fused.render_bwd_plain(
+            g_em, em, f_store, omega, tensors[:n_layers], tensors[n_layers:],
+            ctx.cfg, ctx.deg)
+        return (None,) * 7 + (*gw, *gb)
+
+
+@pytest.mark.cuda
+def test_width_over_128_raises_on_card(cuda_device):
+    """Width 256 is refused by both wrappers before any launch, with a
+    ValueError that says why; there is no fallback to the plain
+    versions."""
+    args = _forward_inputs(cuda_device, np.random.default_rng(3), 256, 4, 1,
+                           64, 'float32')
+    launches = (fused.render_fwd.launches, fused.render_bwd.launches)
+    with pytest.raises(ValueError, match='net_width up to 128'):
+        fused.render_fwd(*args)
+    em, f = fused.render_fwd_plain(*args, stash=True)
+    with pytest.raises(ValueError, match='net_width up to 128'):
+        fused.render_bwd(em, em, f, args[2], args[5], args[6], args[7], 3)
+    assert (fused.render_fwd.launches, fused.render_bwd.launches) == launches
+
+
+def _hotspot():
+    return emission.generate_hotspot((16, 16, 16), [0, 0, 1], 0.0,
+                                     orbit_radius=5.9, std=0.7, r_isco=5.33,
+                                     fov=16.0)
+
+
+@pytest.mark.cuda
+def test_interpolate_coords_on_card_matches_cpu(cuda_device):
+    """Trilinear sampling on the card equals the same function on the CPU
+    for points inside, on the border and outside the grid (atol 1e-8 of a
+    field whose peak is 0.1)."""
+    pts = np.random.default_rng(4).uniform(-9.0, 9.0, (4096, 3)) \
+        .astype(np.float32)
+    hot = _hotspot()
+    cpu = emission.interpolate_coords(hot, torch.as_tensor(pts))
+    card = emission.interpolate_coords(hot, torch.as_tensor(pts).to(
+        cuda_device))
+    assert card.device.type == 'cuda'
+    np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(), atol=1e-8,
+                               rtol=0)
+
+
+@pytest.mark.cuda
+def test_image_plane_dynamics_on_card_matches_cpu(cuda_device):
+    """The forward movie renderer on the card equals the same function on
+    the CPU (an 8x8x32 table, 6 frames in chunks of 4, Stokes factors J):
+    atol 1e-5 of the movie's max (the card's trigonometry differs in the
+    last bits)."""
+    geos = image_plane_geos(spin=0.2, inclination=np.deg2rad(60.0),
+                            alpha_range=(-8, 8), beta_range=(-8, 8), ngeo=32,
+                            num_alpha=8, num_beta=8, n_fine=512)
+    J = np.random.default_rng(5).uniform(-1, 1, (3, 8, 8, 32))
+    t = units.Quantity(np.linspace(0.0, 1.0, 6), 'hr')
+    movies = [emission.image_plane_dynamics(
+        _hotspot(), geos, geos.keplerian_omega(), t, -float(geos.r_o + 4),
+        J=J, frame_chunk=4, device=device).cpu().numpy()
+        for device in ('cpu', cuda_device)]
+    assert movies[0].shape == (6, 3, 8, 8)
+    scale = np.abs(movies[0]).max()
+    assert scale > 0
+    np.testing.assert_allclose(movies[1] / scale, movies[0] / scale,
+                               atol=1e-5, rtol=0)

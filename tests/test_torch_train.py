@@ -25,7 +25,7 @@ from bhnerf_tpu.train import make_optimizer as j_make_optimizer
 from bhnerf_tpu.train import raytracing_args as j_raytracing_args
 from bhnerf_tpu.train import step as j_step
 
-from bhnerf_tpu_torch import alma, units
+from bhnerf_tpu_torch import alma, emission, units
 from bhnerf_tpu_torch.geodesics.dataset import Geodesics
 from bhnerf_tpu_torch.models.fields import NeRFPredictor
 from bhnerf_tpu_torch.ops import fused
@@ -286,7 +286,8 @@ def test_optimizer_run_lowers_loss_on_cpu(setup):
 @pytest.mark.parametrize('entry_point', [
     Optimizer.__init__, TrainStep.image, TemporalBatchedArgs.__init__,
     step.raytracing_args, NeRFPredictor.init_params,
-    NeRFPredictor.params_from_jax, alma.get_raytracing_args],
+    NeRFPredictor.params_from_jax, alma.get_raytracing_args,
+    emission.image_plane_dynamics],
     ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(entry_point):
     """The port's entry points run on the card unless the caller asks for
