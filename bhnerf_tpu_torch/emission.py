@@ -23,10 +23,12 @@ from bhnerf_tpu_torch import units, utils
 from bhnerf_tpu_torch.ops import gr
 
 # image_plane_dynamics renders frames in chunks that keep its eager warp
-# and interpolation temporaries (about 512 bytes a sample and frame in
-# float32) within this many bytes of device memory
+# and interpolation temporaries within this many bytes of device memory.
+# A chunk's peak grows by 146 bytes a sample and frame for a static field
+# and a scalar J (chip_smoke.py's recovery phase, NVIDIA H100 80GB HBM3);
+# per-sample Stokes factors add to that
 RENDER_BUDGET_BYTES = 2 ** 31
-_BYTES_PER_SAMPLE_FRAME = 512
+_BYTES_PER_SAMPLE_FRAME = 160
 
 
 def _orbit_rotation(rot_axis):
@@ -74,6 +76,24 @@ def _as_tensor(x, device=None):
     return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
 
+def _frame_times(t_frames, t_start_obs, M, t_units=None):
+    """The velocity warp's units rule (reference emission.py:111-128):
+    times are in t_start_obs's unit, else in `t_units`, else in
+    t_frames's, else in M. Returns (t_frames, t_start_obs, GM_c3): the
+    plain values in that unit and the length of one M in it (1.0 for
+    times in M)."""
+    if isinstance(t_start_obs, units.Quantity):
+        t_units = t_start_obs.unit
+        t_start_obs = t_start_obs.value
+    elif t_units is None and isinstance(t_frames, units.Quantity):
+        t_units = t_frames.unit
+    if isinstance(t_frames, units.Quantity):
+        t_frames = (t_frames.to(t_units).value if t_units is not None
+                    else t_frames.value)
+    GM_c3 = 1.0 if t_units is None else consts.GM_c3(M).to(t_units).value
+    return t_frames, t_start_obs, GM_c3
+
+
 def velocity_warp_matrix(coords_ndim, Omega, t_frames, t_start_obs, t_geos,
                          t_injection, rot_axis=(0, 0, 1),
                          M=consts.sgra_mass, t_units=None):
@@ -84,20 +104,8 @@ def velocity_warp_matrix(coords_ndim, Omega, t_frames, t_start_obs, t_geos,
     samples after the injection time. NaN-free by construction.
     """
     Omega = _as_tensor(Omega)
-
-    if isinstance(t_start_obs, units.Quantity):
-        t_units = t_start_obs.unit
-        t_start_obs = t_start_obs.value
-    elif t_units is None and isinstance(t_frames, units.Quantity):
-        t_units = t_frames.unit
-
-    GM_c3 = 1.0
-    if t_units is not None:
-        GM_c3 = consts.GM_c3(M).to(t_units).value
-
-    if isinstance(t_frames, units.Quantity):
-        t_frames = (t_frames.to(t_units).value if t_units is not None
-                    else t_frames.value)
+    t_frames, t_start_obs, GM_c3 = _frame_times(t_frames, t_start_obs, M,
+                                                t_units)
     t_frames = _as_tensor(t_frames, Omega.device)
 
     if Omega.ndim == 0:
@@ -201,17 +209,7 @@ def image_plane_dynamics(emission_0, geos, Omega, t_frames, t_injection,
             t_start_obs = t_frames[0] if t_frames.ndim else t_frames
         else:
             t_start_obs = np.atleast_1d(np.asarray(t_frames))[0]
-    # the units rule of velocity_warp_matrix: t_start_obs's unit, else
-    # t_frames's, else times in M
-    t_units = None
-    if isinstance(t_start_obs, units.Quantity):
-        t_units = t_start_obs.unit
-        t_start_obs = t_start_obs.value
-    elif isinstance(t_frames, units.Quantity):
-        t_units = t_frames.unit
-    if isinstance(t_frames, units.Quantity):
-        t_frames = t_frames.to(t_units).value
-    GM_c3 = consts.GM_c3(M).to(t_units).value if t_units is not None else 1.0
+    t_frames, t_start_obs, GM_c3 = _frame_times(t_frames, t_start_obs, M)
     t_M = ((np.asarray(t_frames, np.float64) - float(t_start_obs))
            / GM_c3)
     nt = t_M.shape[0] if t_M.ndim else 1

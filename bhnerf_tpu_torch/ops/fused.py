@@ -201,8 +201,7 @@ def _pad16(k):
     return -(-k // 16) * 16
 
 
-def _check_cuda_inputs(tensors, cfg, n):
-    width = cfg[1]
+def _check_cuda_inputs(tensors, n):
     dev = tensors[0].device
     for x in tensors:
         if x.device != dev or x.dtype != torch.float32 \
@@ -212,9 +211,6 @@ def _check_cuda_inputs(tensors, cfg, n):
     if n % TILE_N:
         raise ValueError(f'sample count {n} must be a multiple of TILE_N '
                          f'({TILE_N}); pad the inputs')
-    if width % 16 or width > MAX_WIDTH:
-        raise ValueError(f'the fused CUDA kernels take net_width a multiple '
-                         f'of 16 up to {MAX_WIDTH}; got width {width}')
 
 
 def _pad_width(weights, biases, cfg):
@@ -313,7 +309,7 @@ def render_fwd(t_eff, coords, omega, tg, smask, weights, biases, cfg, scale,
     nt, n = t_eff.shape[0], coords.shape[1]
     feat = 3 * (1 + 2 * deg)
     bf16 = compute_dtype == 'bfloat16'
-    _check_cuda_inputs([t_eff, coords, omega, tg, smask], cfg, n)
+    _check_cuda_inputs([t_eff, coords, omega, tg, smask], n)
     w, b, _ = _pack_cuda(weights, biases, cfg, feat, bf16)
     lib = _lib()
     # scratch for the weights in the order the kernel's MMAs take them
@@ -356,7 +352,7 @@ def render_bwd(g_em, em, f_store, omega, weights, biases, cfg, deg,
     feat = f_store.shape[0]
     bf16 = compute_dtype == 'bfloat16'
     g_em = g_em.contiguous()
-    _check_cuda_inputs([g_em, em, f_store, omega], cfg, n)
+    _check_cuda_inputs([g_em, em, f_store, omega], n)
     lib = _lib()
     smem = lib.fused_render_bwd_smem(depth, width, feat)
     props = torch.cuda.get_device_properties(g_em.device)

@@ -40,7 +40,8 @@ Phases (any failure raises and exits non-zero):
      of 10 ALMA steps per layout;
   8. the recovery fit of bench_recovery.py on the Tutorial-3 geometry's
      table: a hotspot at 1.1 r_isco rendered into a 64-frame movie by
-     emission.image_plane_dynamics on the card, then 1000 steps of the
+     emission.image_plane_dynamics on the card (and the device memory a
+     render chunk takes per sample and frame), then 1000 steps of the
      'full' image fit (rmin 0, batch 6, lr 1e-3 -> 1e-5) in float32 and in
      bfloat16, each held to the bar of RECOVERY_MIN_PSNR dB of psnr_3d
      (sample_3d_grid at 64^3 against the hotspot) and
@@ -48,7 +49,7 @@ Phases (any failure raises and exits non-zero):
      backward launch per step; the float32 fit checkpoints every 500
      steps, and restore_params, a resumed Optimizer and keep pruning are
      checked against it; both kernels against their plain versions at the
-     fit's sample count.
+     fit's sample count in float32 and in bfloat16.
 The two lines before the last are the JSON recovery summary and the JSON
 kernel summary; the last line is {"ok": true, "device": {...}}.
 """
@@ -821,8 +822,9 @@ def recovery_target(geos, device):
     """The ground truth of bench_recovery.py:99-120: a hotspot at 1.1
     r_isco with std 0.7 on a RECOVERY_RES^3 grid over the field of view,
     and its movie of NT frames over an hour rendered on the card by
-    emission.image_plane_dynamics. Returns (hotspot, t_frames,
-    t_injection, movie)."""
+    emission.image_plane_dynamics, and the device memory a render chunk
+    takes per sample and frame. Returns (hotspot, t_frames, t_injection,
+    movie)."""
     import torch
     from bhnerf_tpu_torch import constants, emission, units, utils
 
@@ -832,12 +834,31 @@ def recovery_target(geos, device):
         orbit_radius=1.1 * r_isco, std=0.7, r_isco=r_isco, fov=FOV)
     t_frames = units.Quantity(np.linspace(0.0, 1.0, NT), 'hr')
     t_injection = -float(geos.r_o + FOV / 4)
+    render = lambda frames, **kw: emission.image_plane_dynamics(
+        hotspot, geos, geos.keplerian_omega(), frames, t_injection,
+        t_start_obs=t_frames[0], device=device, **kw)
     t0 = time.perf_counter()
-    movie = emission.image_plane_dynamics(
-        hotspot, geos, geos.keplerian_omega(), t_frames, t_injection,
-        device=device)
+    movie = render(t_frames)
     torch.cuda.synchronize()
     t_render = time.perf_counter() - t0
+
+    # the peak device memory of one chunk of 4 and of 16 frames: its
+    # growth per frame is what the chunk's temporaries take
+    peaks = {}
+    for chunk in (4, 16):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        part = render(t_frames[:chunk], frame_chunk=chunk)
+        torch.cuda.synchronize()
+        peaks[chunk] = torch.cuda.max_memory_allocated(device) - base
+        if not torch.allclose(part, movie[:chunk], rtol=1e-5,
+                              atol=1e-6 * float(movie.abs().max())):
+            raise RuntimeError(f'a render chunk of {chunk} frames differs '
+                               f'from the whole movie')
+        del part
+    n = NUM_RAYS * NUM_RAYS * NGEO
+    bytes_per = (peaks[16] - peaks[4]) / (12 * n)
     movie = movie.cpu().numpy()
     lc = movie.sum(axis=(-1, -2))
     zero_psnr = utils.psnr(hotspot.data, np.zeros(hotspot.data.shape))
@@ -846,15 +867,28 @@ def recovery_target(geos, device):
         f'{movie.shape} rendered on the card in {t_render:.2f} s, lightcurve '
         f'{lc.min():.4g}..{lc.max():.4g}; a field of zeros scores '
         f'{zero_psnr:.2f} dB')
+    log(f'render memory: peak {peaks[4]} B for a chunk of 4 frames, '
+        f'{peaks[16]} B for 16, at {n} samples: {bytes_per:.1f} B per '
+        f'sample and frame (image_plane_dynamics sizes its chunks for '
+        f'{emission._BYTES_PER_SAMPLE_FRAME})')
     if movie.shape != (NT, NUM_RAYS, NUM_RAYS) or not np.isfinite(movie).all() \
             or not lc.min() > 0:
         raise RuntimeError(f'bad ground-truth movie {movie.shape}')
+    if bytes_per > emission._BYTES_PER_SAMPLE_FRAME:
+        raise RuntimeError('a render chunk takes more memory than '
+                           'image_plane_dynamics sizes its chunks for')
     return hotspot, t_frames, t_injection, movie
 
 
 def recovery_kernel_checks(predictor, crt, t_frames, device):
     """Both kernels against their plain versions at the recovery fit's
-    sample count (f32, a 6-frame batch), with their times and bounds."""
+    sample count and a 6-frame batch, in each compute dtype the fit runs,
+    with their times and bounds. float32: emission atol 2e-6 / rtol 1e-4,
+    F 1e-5, gradients 5e-5 normalised. bfloat16, against the plain
+    version in bfloat16: emission atol 2e-3 / rtol 2e-2, F one bf16 step
+    (2^-7), gradients 1e-2 normalised (the card tests' tolerances); and
+    against the float32 plain version as on the main path: loss within
+    2% and every gradient matrix at a cosine above 0.99."""
     import torch
     from bhnerf_tpu_torch.ops import fused
 
@@ -862,38 +896,63 @@ def recovery_kernel_checks(predictor, crt, t_frames, device):
     common = kernel_inputs(predictor, crt, t_frames, np.random.default_rng(4),
                            device)
     _, _, omega, _, _, weights, biases, cfg, _, deg = common
-    em_k, f_k = fused.render_fwd(*common, 'float32', stash=True)
-    em_p, f_p = fused.render_fwd_plain(*common, 'float32', stash=True)
-    target = torch.as_tensor(np.random.default_rng(5).random(em_p.shape),
-                             dtype=torch.float32, device=device)
-    g_em = (2.0 * (em_p - target)).contiguous()
-    bwd_args = (em_p, f_p, omega, weights, biases, cfg, deg, 'float32')
-    gk = fused.render_bwd(g_em, *bwd_args)
-    gp = fused.render_bwd_plain(g_em, *bwd_args)
-    torch.cuda.synchronize()
-    fwd_err = float((em_k - em_p).abs().max())
-    bwd_err, norm_err = grad_errors(gp, gk)
-    if not torch.allclose(em_k, em_p, atol=2e-6, rtol=1e-4) \
-            or float((f_k - f_p).abs().max()) > 1e-5 or norm_err > 5e-5:
-        raise RuntimeError(f'recovery N = {n}: kernels disagree with their '
-                           f'plain versions (emission {fwd_err:.3e}, '
-                           f'gradients {norm_err:.3e} normalised)')
     n_params = sum(w.numel() + b.numel() for w, b in zip(weights, biases))
+    target = torch.as_tensor(np.random.default_rng(5).random((BATCH, n)),
+                             dtype=torch.float32, device=device)
+    em32, f32 = fused.render_fwd_plain(*common, 'float32', stash=True)
+    g32 = (2.0 * (em32 - target)).contiguous()
+    gp32 = fused.render_bwd_plain(g32, em32, f32, omega, weights, biases,
+                                  cfg, deg, 'float32')
+    tols = {'float32': (dict(atol=2e-6, rtol=1e-4), 1e-5, 5e-5),
+            'bfloat16': (dict(atol=2e-3, rtol=2e-2), 2.0 ** -7, 1e-2)}
     out = {}
-    for kind, err, run, plain in (
-            ('fwd', fwd_err, lambda: fused.render_fwd(*common, 'float32'),
-             lambda: fused.render_fwd_plain(*common, 'float32')),
-            ('bwd', bwd_err, lambda: fused.render_bwd(g_em, *bwd_args),
-             lambda: fused.render_bwd_plain(g_em, *bwd_args))):
-        ms, plain_ms = cuda_ms(run), cuda_ms(plain)
-        b_ms, b_by, _ = bound(kind, cfg, f_p.shape[0], BATCH, n, n_params,
-                              'float32')
-        out[kind] = dict(err=err, ms=ms, plain_ms=plain_ms, bound=(b_ms, b_by))
-        tol = (f'normalised {norm_err:.3e}, atol 5e-5' if kind == 'bwd'
-               else 'atol 2e-6, rtol 1e-4')
-        log(f'recovery N = {n}, {kind}: max|kernel - plain| = {err:.3e} '
-            f'({tol}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound '
-            f'{b_ms:.3f} ms ({b_by}), kernel at {100 * b_ms / ms:.1f}% of it')
+    for dtype, (em_tol, f_tol, g_tol) in tols.items():
+        em_k, f_k = fused.render_fwd(*common, dtype, stash=True)
+        em_p, f_p = fused.render_fwd_plain(*common, dtype, stash=True)
+        g_em = (2.0 * (em_p - target)).contiguous()
+        bwd_args = (em_p, f_p, omega, weights, biases, cfg, deg, dtype)
+        gk = fused.render_bwd(g_em, *bwd_args)
+        gp = fused.render_bwd_plain(g_em, *bwd_args)
+        torch.cuda.synchronize()
+        fwd_err = float((em_k - em_p).abs().max())
+        f_err = float((f_k - f_p).abs().max())
+        bwd_err, norm_err = grad_errors(gp, gk)
+        line = (f'recovery N = {n}, {dtype}: emission {fwd_err:.3e} (atol '
+                f'{em_tol["atol"]:g}, rtol {em_tol["rtol"]:g}), F '
+                f'{f_err:.3e} (atol {f_tol:.3g}), gradients '
+                f'{norm_err:.3e} normalised (atol {g_tol:.0e})')
+        if not torch.allclose(em_k, em_p, **em_tol) or f_err > f_tol \
+                or norm_err > g_tol:
+            raise RuntimeError(f'kernels disagree with their plain versions: '
+                               f'{line}')
+        if dtype == 'bfloat16':
+            loss_rel = abs(float(((em_k - target) ** 2).sum())
+                           - float(((em32 - target) ** 2).sum())) \
+                / float(((em32 - target) ** 2).sum())
+            cos = min(float(torch.nn.functional.cosine_similarity(
+                a.reshape(1, -1), b.reshape(1, -1))) for a, b in
+                zip(gp32[0] + gp32[1], gk[0] + gk[1]))
+            line += (f'; against float32 plain: loss rel diff {loss_rel:.3e}'
+                     f' (< 0.02), min gradient cosine {cos:.6f} (> 0.99)')
+            if loss_rel > 0.02 or cos < 0.99:
+                raise RuntimeError(f'bf16 kernels stray from the f32 '
+                                   f'reference: {line}')
+        log(line)
+        out[dtype] = {}
+        for kind, err, run, plain in (
+                ('fwd', fwd_err, lambda: fused.render_fwd(*common, dtype),
+                 lambda: fused.render_fwd_plain(*common, dtype)),
+                ('bwd', bwd_err, lambda: fused.render_bwd(g_em, *bwd_args),
+                 lambda: fused.render_bwd_plain(g_em, *bwd_args))):
+            ms, plain_ms = cuda_ms(run), cuda_ms(plain)
+            b_ms, b_by, _ = bound(kind, cfg, f_p.shape[0], BATCH, n,
+                                  n_params, dtype)
+            out[dtype][kind] = {'max_abs_err': err, 'ms': ms,
+                                'plain_ms': plain_ms, 'bound_ms': b_ms,
+                                'bound_by': b_by}
+            log(f'recovery N = {n}, {dtype} {kind}: kernel {ms:.3f} ms, '
+                f'plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), '
+                f'kernel at {100 * b_ms / ms:.1f}% of it')
     return out
 
 
@@ -1034,14 +1093,10 @@ def recovery_phase(kernels, geos, device):
                                     np.asarray(t_frames.value, np.float32),
                                     device)
     for i, (entry, kind) in enumerate(zip(kernels, ('fwd', 'bwd'))):
-        c = checks[kind]
-        entry.update({
-            'recovery_n': crt.coords.shape[1],
-            'recovery_launches': {k: run[4][i] for k, run in runs.items()},
-            'recovery_max_abs_err': c['err'], 'recovery_ms': c['ms'],
-            'recovery_plain_ms': c['plain_ms'],
-            'recovery_bound_ms': c['bound'][0],
-            'recovery_bound_by': c['bound'][1]})
+        entry['recovery'] = {
+            'n': crt.coords.shape[1],
+            'launches': {k: run[4][i] for k, run in runs.items()},
+            **{dtype: c[kind] for dtype, c in checks.items()}}
     return {k: run[0] for k, run in runs.items()}
 
 

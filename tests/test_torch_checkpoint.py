@@ -2,22 +2,41 @@
 with torch.save, keep pruning, restore, the Optimizer's save period and
 resume, and the SIGTERM checkpoint-and-return of its training loop
 (counterparts of tests/test_training.py:178 and :426 and
-tests/test_workflow_coverage.py:107).
+tests/test_workflow_coverage.py:107), each also run through the
+reference's Optimizer (bhnerf_tpu, orbax checkpoints) on the same
+problem: the same checkpoint listings, the same stopping step, the same
+step after a resume and the same parameters.
 
 The ray constants are a small seeded synthetic table (4x4 rays x 16
 samples inside the emission shell), so these tests need no geodesics;
 the fit runs the fused path, whose kernels take their plain versions on
-the CPU.
+the CPU, and the reference its XLA path on the same compacted samples.
 """
+import dataclasses
 import os
+import re
+import shutil
 import signal
 import threading
 
 import numpy as np
 import pytest
+
+import jax
+import jax.numpy as jnp
+
+from bhnerf_tpu import units as j_units
+from bhnerf_tpu.models import NeRFPredictor as JPredictor
+from bhnerf_tpu.train import LogFn as JLogFn
+from bhnerf_tpu.train import Optimizer as JOptimizer
+from bhnerf_tpu.train import TrainState as JTrainState
+from bhnerf_tpu.train import TrainStep as JTrainStep
+from bhnerf_tpu.train import step as j_step
+
 import torch
 
 from bhnerf_tpu_torch import units
+from bhnerf_tpu_torch.ops import fused
 from bhnerf_tpu_torch.models.fields import NeRFPredictor
 from bhnerf_tpu_torch.train import optimizer as optimizer_lib
 from bhnerf_tpu_torch.train import state as state_lib
@@ -26,30 +45,34 @@ from bhnerf_tpu_torch.train.optimizer import LogFn, Optimizer, TrainStep
 from bhnerf_tpu_torch.train.state import TrainState, make_optimizer
 
 NT = 4
-PRED = NeRFPredictor(scale=8.0, rmax=8.0, z_width=2.0, net_depth=2,
-                     net_width=16)
+PRED_KW = dict(scale=8.0, rmax=8.0, z_width=2.0, net_depth=2, net_width=16)
+PRED = NeRFPredictor(**PRED_KW)
+JPRED = JPredictor(**PRED_KW)
+CKPT_RE = re.compile(r'^checkpoint_\d+$')
 
 
 @pytest.fixture(scope='module')
 def problem():
     rng = np.random.default_rng(0)
     shape = (4, 4, 16)
-    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32))
-    coords = np.stack([rng.uniform(-6, 6, shape), rng.uniform(-6, 6, shape),
-                       rng.uniform(-1.5, 1.5, shape)])
+    fields = dict(
+        coords=np.stack([rng.uniform(-6, 6, shape),
+                         rng.uniform(-6, 6, shape),
+                         rng.uniform(-1.5, 1.5, shape)]),
+        Omega=rng.uniform(0.02, 0.08, shape), g=rng.uniform(0.5, 1.5, shape),
+        dtau=rng.uniform(0.5, 1.0, shape), Sigma=rng.uniform(0.5, 1.0, shape),
+        t_geos_rel=rng.uniform(0.0, 50.0, shape))
+    fields = {k: v.astype(np.float32) for k, v in fields.items()}
     rt = step.RayTracingArgs(
-        coords=f32(coords), Omega=f32(rng.uniform(0.02, 0.08, shape)),
-        J=1.0, g=f32(rng.uniform(0.5, 1.5, shape)),
-        dtau=f32(rng.uniform(0.5, 1.0, shape)),
-        Sigma=f32(rng.uniform(0.5, 1.0, shape)),
-        t_geos_rel=f32(rng.uniform(0.0, 50.0, shape)),
+        **{k: torch.as_tensor(v) for k, v in fields.items()}, J=1.0,
         t_injection=torch.zeros(()), t_to_M=100.0, t_units=units.hr)
-    crt = step.compact_raytracing_args(rt, PRED)
-    t_frames = units.Quantity(np.linspace(0.0, 0.05, NT), 'hr')
+    crt = step.compact_raytracing_args(rt, PRED, layout='gather')
+    t_hr = np.linspace(0.0, 0.05, NT)
     target = (0.02 * rng.random((NT, 4, 4))).astype(np.float32)
-    train_step = TrainStep.image(t_frames, target, PRED, fused=True,
-                                 device='cpu')
-    return dict(crt=crt, train_step=train_step)
+    train_step = TrainStep.image(units.Quantity(t_hr, 'hr'), target, PRED,
+                                 fused=True, device='cpu')
+    return dict(crt=crt, train_step=train_step, fields=fields, t_hr=t_hr,
+                target=target)
 
 
 def make(problem, ckpt='', num_iters=8, lr_final=1e-5, **kw):
@@ -291,3 +314,166 @@ def test_graceful_shutdown_restores_none_as_default(monkeypatch):
         assert calls[-1] is signal.SIG_DFL
     finally:
         real(signal.SIGTERM, prev)
+
+
+# ---------------------------------------------------------------------------
+# against the reference Optimizer
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope='module')
+def j_problem(problem):
+    """The problem for the reference: its ray constants from the same
+    seeded fields, compacted in the 'gather' layout, with the port's
+    compacted weights (the Doppler-free product g * dtau * Sigma, summed
+    in another order there), and its image TrainStep on the same target
+    and frame times."""
+    rt = j_step.RayTracingArgs(
+        **{k: jnp.asarray(v) for k, v in problem['fields'].items()}, J=1.0,
+        t_injection=jnp.zeros((), jnp.float32), t_to_M=100.0,
+        t_units=j_units.hr)
+    crt = j_step.compact_raytracing_args(rt, JPRED, tile=fused.TILE_N,
+                                         layout='gather')
+    for field in ('coords', 't_geos_rel', 'pixel_ids', 'red_gather'):
+        np.testing.assert_array_equal(
+            np.asarray(getattr(crt, field)),
+            getattr(problem['crt'], field).numpy().astype(
+                np.asarray(getattr(crt, field)).dtype))
+    crt = dataclasses.replace(
+        crt, weights=jnp.asarray(problem['crt'].weights.numpy()),
+        red_weights=jnp.asarray(problem['crt'].red_weights.numpy()))
+    train_step = JTrainStep.image(j_units.Quantity(problem['t_hr'], 'hr'),
+                                  problem['target'], JPRED, dtype='full')
+    return dict(crt=crt, train_step=train_step)
+
+
+HPARAMS = {'lr_init': 1e-3, 'lr_final': 1e-5, 'seed': 0}
+
+
+def run_both(problem, j_problem, path, num_iters, save_period=-1, keep=5,
+             sigterm_at=None):
+    """One Optimizer of each package on the problem with the same
+    hyper-parameters, checkpoint directory `path`/{jax,torch}, a batch of
+    every frame (so the frame draws do not matter) and a LogFn that
+    records each step and sends SIGTERM at step `sigterm_at`. A fresh
+    port Optimizer starts from the reference's initial params. Returns
+    (reference optimizer, port optimizer, {package: steps seen})."""
+    hparams = dict(HPARAMS, num_iters=num_iters)
+    kw = dict(save_period=save_period, keep=keep)
+    j_opt = JOptimizer(hparams, JPRED, j_problem['crt'],
+                       checkpoint_dir=str(path / 'jax'), **kw)
+    opt = Optimizer(hparams, PRED, problem['crt'],
+                    checkpoint_dir=str(path / 'torch'), device='cpu', **kw)
+    assert opt.state.step == int(np.asarray(j_opt.state.step))
+    if opt.state.step == 0:
+        init = jax.tree_util.tree_map(np.asarray, j_opt.state.params)
+        # lift the head so the emission (and its gradients) is macroscopic
+        head = f'dense_{PRED.net_depth}'
+        init[head]['bias'] = init[head]['bias'] + 8.0
+        j_opt.state = JTrainState(j_opt.state.step, init, j_opt.state.opt_state,
+                                  j_opt.state.tx)
+        with torch.no_grad():
+            opt.state.params.load_state_dict(
+                PRED.params_from_jax(init, device='cpu').state_dict())
+    start = {k: v.clone() for k, v in opt.params.state_dict().items()}
+    seen = {'jax': [], 'torch': []}
+
+    def record(name):
+        def fn(o):
+            seen[name].append(int(o.step))
+            if o.step == sigterm_at:
+                os.kill(os.getpid(), signal.SIGTERM)
+        return fn
+
+    j_opt.run(NT, j_problem['train_step'], j_problem['crt'],
+              log_fns=[JLogFn(record('jax'))], verbose=False)
+    opt.run(NT, problem['train_step'], problem['crt'],
+            log_fns=[LogFn(record('torch'))], verbose=False)
+    return j_opt, opt, seen, start
+
+
+def listing(path):
+    return sorted((p.name for p in path.iterdir() if CKPT_RE.match(p.name)),
+                  key=lambda name: int(name.split('_')[1]))
+
+
+def assert_params_match(j_opt, opt, start, num_updates):
+    """The port's params against the reference's after the same updates:
+    atol 1e-3 of the most a parameter can move in them (the sum of their
+    learning rates; the two gradients differ by float32 reassociation, and
+    on this problem the params differ by up to 2.1e-4 of it). Every layer
+    must have moved from `start` by more than 10x that tolerance."""
+    tx = opt.state.tx
+    atol = 1e-3 * sum(tx.lr(k) for k in range(num_updates))
+    j_params = jax.tree_util.tree_map(np.asarray, j_opt.params)
+    for i, layer in enumerate(opt.params.mlp.layers):
+        ref = j_params[f'dense_{i}']
+        weight, bias = layer.weight.detach(), layer.bias.detach()
+        np.testing.assert_allclose(weight.numpy(), ref['kernel'].T, rtol=0,
+                                   atol=atol)
+        np.testing.assert_allclose(bias.numpy(), ref['bias'], rtol=0,
+                                   atol=atol)
+        moved = float((weight - start[f'mlp.layers.{i}.weight']).abs().max())
+        assert moved > 10 * atol, f'layer {i} did not move'
+
+
+@pytest.mark.parametrize('num_iters,save_period,keep', [
+    (7, 3, 5), (6, 2, 2), (5, 1, 0), (4, 1, -1), (5, -1, 5)])
+def test_save_period_and_keep_match_jax(tmp_path, problem, j_problem,
+                                        num_iters, save_period, keep):
+    """save_period, the last-step checkpoint and keep pruning (keep <= 0
+    keeps all) leave the reference's checkpoint_<step> listing; both
+    runs end at the same step, and a new Optimizer of each package on its
+    directory restores that step."""
+    j_opt, opt, seen, _ = run_both(problem, j_problem, tmp_path, num_iters,
+                                   save_period, keep)
+    assert seen['torch'] == seen['jax'] == list(range(1, num_iters + 1))
+    assert opt.state.step == int(np.asarray(j_opt.state.step)) == num_iters
+    assert listing(tmp_path / 'torch') == listing(tmp_path / 'jax')
+    assert listing(tmp_path / 'torch')[-1] == f'checkpoint_{num_iters}'
+    hparams = dict(HPARAMS, num_iters=3)
+    j_again = JOptimizer(hparams, JPRED, j_problem['crt'],
+                         checkpoint_dir=str(tmp_path / 'jax'))
+    again = Optimizer(hparams, PRED, problem['crt'],
+                      checkpoint_dir=str(tmp_path / 'torch'), device='cpu')
+    assert again.state.step == int(np.asarray(j_again.state.step)) \
+        == num_iters
+
+
+@pytest.fixture(scope='module')
+def preempted(tmp_path_factory, problem, j_problem):
+    """A run of 20 steps of each package, preempted by SIGTERM from a
+    LogFn at step 5."""
+    path = tmp_path_factory.mktemp('preempted')
+    j_opt, opt, seen, start = run_both(problem, j_problem, path, 20,
+                                       save_period=1000, sigterm_at=5)
+    return dict(path=path, j_opt=j_opt, opt=opt, seen=seen, start=start)
+
+
+def test_sigterm_stop_matches_jax(preempted):
+    """SIGTERM from a LogFn at step 5: both packages stop after that step,
+    leave checkpoint_5 alone in their directories and reach the same
+    params (assert_params_match after 5 updates); the SIGTERM handler is
+    back in place."""
+    p = preempted
+    assert p['seen']['torch'] == p['seen']['jax'] == [1, 2, 3, 4, 5]
+    assert p['opt'].state.step == int(np.asarray(p['j_opt'].state.step)) == 5
+    assert listing(p['path'] / 'torch') == listing(p['path'] / 'jax') \
+        == ['checkpoint_5']
+    assert_params_match(p['j_opt'], p['opt'], p['start'], 5)
+    assert signal.getsignal(signal.SIGTERM) is signal.SIG_DFL
+
+
+def test_resume_after_sigterm_matches_jax(tmp_path, preempted, problem,
+                                          j_problem):
+    """New Optimizers of 6 steps on copies of the preempted directories
+    resume at step 5 in both packages, run steps 6..11 on the learning
+    rates of the restored update count, checkpoint at 6 (save_period
+    defaults to num_iters) and at their last step 11, and reach the same
+    params (assert_params_match after all 11 updates)."""
+    for name in ('jax', 'torch'):
+        shutil.copytree(preempted['path'] / name, tmp_path / name)
+    j_opt, opt, seen, start = run_both(problem, j_problem, tmp_path, 6)
+    assert seen['torch'] == seen['jax'] == list(range(6, 12))
+    assert opt.state.step == int(np.asarray(j_opt.state.step)) == 11
+    assert listing(tmp_path / 'torch') == listing(tmp_path / 'jax') \
+        == ['checkpoint_5', 'checkpoint_6', 'checkpoint_11']
+    assert_params_match(j_opt, opt, start, 11)

@@ -233,16 +233,23 @@ def test_fused_injection_leaf_gets_zero_cotangent():
 @pytest.mark.parametrize('width,ok', [(128, True), (16, True), (144, False),
                                       (24, False)])
 def test_cuda_input_check_widths(width, ok):
-    """The wrappers' check refuses the widths the kernels' supported()
-    refuses (multiples of 16 up to MAX_WIDTH), before any launch; the
-    backward has no row limit besides its shared memory."""
+    """The kernels take widths that are multiples of 16 up to MAX_WIDTH as
+    they are (ok); the wrappers pad another width up to the next multiple
+    of 16 and refuse, before any launch, a width whose padding exceeds
+    MAX_WIDTH. The backward has no row limit besides its shared memory."""
     n = fused.TILE_N
-    tensors = [torch.zeros(3, n), torch.zeros(1, n)]
-    if ok:
-        fused._check_cuda_inputs(tensors, (4, width, True), n)
-    else:
+    fused._check_cuda_inputs([torch.zeros(3, n), torch.zeros(1, n)], n)
+    cfg = (4, width, True)
+    params = NeRFPredictor(scale=8.0, net_depth=4, net_width=width) \
+        .init_params(device='cpu')
+    weights, biases = fused.pack_params(params)
+    if width > fused.MAX_WIDTH:
         with pytest.raises(ValueError, match='net_width'):
-            fused._check_cuda_inputs(tensors, (4, width, True), n)
+            fused._pad_width(weights, biases, cfg)
+        return
+    _, _, cfg_p = fused._pad_width(weights, biases, cfg)
+    assert cfg_p == (4, -(-width // 16) * 16, True)
+    assert (cfg_p == cfg) == ok
 
 
 def test_kernel_limits_match_source():
