@@ -14,3 +14,4 @@ from bhnerf_tpu_torch import emission
 from bhnerf_tpu_torch import models
 from bhnerf_tpu_torch import train
 from bhnerf_tpu_torch import alma
+from bhnerf_tpu_torch import observation

@@ -1,11 +1,12 @@
 """Training orchestration: the Optimizer loop, TrainStep, frame batching.
 
 PyTorch counterpart of `bhnerf_tpu/train/optimizer.py` without its
-scan-chunked loop and EHT step: `total_movie_loss` (:19-46), the SIGTERM
-scope `_GracefulShutdown` (:49-88), `Optimizer` with its checkpoints,
-per-step `run` loop and non-finite guard (:90-200, :317), the composable
+scan-chunked loop: `total_movie_loss` (:19-46), the SIGTERM scope
+`_GracefulShutdown` (:49-88), `Optimizer` with its checkpoints, per-step
+`run` loop and non-finite guard (:90-200, :317), the composable
 `TrainStep` over one set of ray constants or a sub-pixel ensemble of
-them (:322-441), `TemporalBatchedArgs` (:483-575) and `LogFn` (:577).
+them, with its image and EHT losses (:322-476), `TemporalBatchedArgs`
+(:483-575) and `LogFn` (:577).
 Frame batches and, for an ensemble, the variant of each gradient step are
 drawn on the host from the Optimizer's explicit `torch.Generator`; the
 full frame tensors live on the training device and each step selects its
@@ -268,8 +269,38 @@ class TrainStep:
         args = TemporalBatchedArgs(t_frames, [target, sigma, offset],
                                    device=device)
         grad_fn, test_fn = step_lib.make_step_fns(
-            predictor, dtype=dtype, fused=fused, tv_scale=tv_scale,
-            tv_fov=tv_fov, tv_resolution=tv_resolution)
+            predictor, kind='image', dtype=dtype, fused=fused,
+            tv_scale=tv_scale, tv_fov=tv_fov, tv_resolution=tv_resolution)
+        return cls(dtype, args, grad_fn, test_fn, scale)
+
+    @classmethod
+    def eht(cls, t_frames, obs, image_fov, image_size, predictor,
+            chisqdata=None, dtype='vis', pol='I', scale=1.0, fused=False,
+            operator='dense', device='cuda'):
+        """EHT measurement training step (reference optimizer.py:444-476,
+        optimization.py:219-268). obs: an observation.Observation, or
+        anything with chisqdata(t_frames, dtype, image_fov, image_size,
+        pol) -> (target, sigma, A) stacked per frame. pol may be a list
+        ('vis'/'amp' only), whose operators act on the matching Stokes
+        images of polarized ray constants. operator='factored' builds the
+        separable operator, npix-fold smaller than the dense DFT matrix
+        and equal to it within float32 round-off. The targets, sigmas and
+        operators live on `device` in float32 whatever the predictor's
+        compute dtype."""
+        if chisqdata is not None:
+            dtype = getattr(chisqdata, 'dtype', dtype)
+        # operator= only when it is not the default: a duck-typed
+        # observation need implement only chisqdata(t, dtype, fov, size,
+        # pol)
+        op_kw = {} if operator == 'dense' else {'operator': operator}
+        target, sigma, A = obs.chisqdata(t_frames, dtype, image_fov,
+                                         image_size, pol=pol, **op_kw)
+        target, sigma, A = step_lib.to_real_measurements(dtype, target,
+                                                         sigma, A)
+        args = TemporalBatchedArgs(t_frames, [target, sigma, A],
+                                   device=device)
+        grad_fn, test_fn = step_lib.make_step_fns(predictor, kind='eht',
+                                                  dtype=dtype, fused=fused)
         return cls(dtype, args, grad_fn, test_fn, scale)
 
     @property

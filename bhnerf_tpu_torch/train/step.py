@@ -1,7 +1,7 @@
 """Ray constants, domain compaction, image loss and the gradient step.
 
 PyTorch counterpart of `bhnerf_tpu/train/step.py` without its mesh
-sharding, scan-chunked steps and EHT losses:
+sharding and scan-chunked steps:
 
 * `RayTracingArgs` freezes the geodesic constants into float32 tensors on
   the training device; `t_geos - t_injection` is subtracted in float64 on
@@ -19,11 +19,16 @@ sharding, scan-chunked steps and EHT losses:
   into one weight row per Stokes component, outside the fused kernels;
 * the 'lc' loss takes the lightcurve straight from the compact samples
   as `em @ weights^T`, sharing one emission pass with the aux images;
+* the EHT losses (`loss_fn_eht`: 'vis', 'amp', 'cphase', 'bs', 'logcamp',
+  'camp') map images to visibilities through a dense or factored DFT
+  operator split into real and imaginary parts, whose products run in
+  IEEE float32 whatever the caller's TF32 setting;
 * `make_step_fns` returns the grad/test steps over full device-resident
   frame tensors plus explicit frame indices.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
@@ -32,7 +37,7 @@ import torch
 
 from bhnerf_tpu_torch import constants as consts
 from bhnerf_tpu_torch import emission as emission_lib
-from bhnerf_tpu_torch import units
+from bhnerf_tpu_torch import units, utils
 from bhnerf_tpu_torch.models.fields import learned_t_injection
 from bhnerf_tpu_torch.ops import fused as fused_lib
 from bhnerf_tpu_torch.ops import gr
@@ -550,6 +555,199 @@ def loss_fn_image(params, predictor, target, sigma, offset, t_frames_M,
     return scale * loss, [images]
 
 
+def to_real_measurements(dtype, target, sigma, A):
+    """Split complex measurement operators into a real/imag layout
+    (reference step.py:810-843; host numpy). Layouts consumed by
+    loss_fn_eht:
+
+    * 'vis':    target (..., 2, nvis) [re, im]; sigma broadcastable;
+                A (..., 2, nvis, npix^2)
+    * 'amp':    target (..., nvis) real; A (..., 2, nvis, npix^2)
+    * 'cphase': target (..., ntri) radians; A (..., 3, 2, ntri, npix^2)
+    * 'bs':     target (..., 2, ntri) [re, im]; sigma broadcastable;
+                A (..., 3, 2, ntri, npix^2)
+    * 'logcamp'/'camp': target (..., nquad) real; A
+                (..., 4, 2, nquad, npix^2)
+
+    Factored operators (observation.chisqdata(operator='factored')) are
+    already real separable stacks (..., 4, n, npix) and pass through
+    (apply_measurement_operator tells the forms apart by their shape).
+    """
+    A = np.asarray(A)
+    if np.iscomplexobj(A):
+        A_ri = np.stack([A.real, A.imag], axis=-3).astype(np.float32)
+    else:
+        A_ri = A.astype(np.float32)
+    target = np.asarray(target)
+    sigma = np.asarray(sigma, np.float32)
+    if dtype in ('vis', 'bs'):
+        target_ri = np.stack([target.real, target.imag],
+                             axis=-2).astype(np.float32)
+        sigma_ri = np.broadcast_to(sigma[..., None, :],
+                                   target_ri.shape).copy()
+        return np.nan_to_num(target_ri), sigma_ri, np.nan_to_num(A_ri)
+    return (np.nan_to_num(np.asarray(target, np.float32)), sigma,
+            np.nan_to_num(A_ri))
+
+
+@contextlib.contextmanager
+def _ieee_float32_matmul():
+    """cuBLAS products in IEEE float32 inside the scope, whatever the
+    caller set: TF32 keeps 10 mantissa bits, and a dense visibility sums
+    npix^2 terms. The previous setting is restored exactly, so that a
+    caller who set the legacy allow_tf32 flag can still read it (torch
+    refuses to read it while the two settings disagree)."""
+    mm = torch.backends.cuda.matmul
+    prev = mm.fp32_precision
+    mm.fp32_precision = 'ieee'
+    try:
+        yield
+    finally:
+        mm.fp32_precision = prev
+
+
+def _is_dense(images, A):
+    ny, nx = images.shape[-2], images.shape[-1]
+    if A.shape[-1] == ny * nx and A.shape[-3] != 4:
+        return True
+    if A.shape[-3] != 4 or A.shape[-1] < max(nx, ny):
+        raise ValueError(
+            f'measurement operator shape {tuple(A.shape)} matches neither '
+            f'the dense (..., 2, n, {ny * nx}) nor the factored (..., 4, n, '
+            f'>=max(nx, ny)) layout for image shape {tuple(images.shape)}')
+    return False
+
+
+def _factors(A, nx, ny):
+    return (A[..., 0, :, :nx], A[..., 1, :, :nx], A[..., 2, :, :ny],
+            A[..., 3, :, :ny])
+
+
+class _OperatorProduct(torch.autograd.Function):
+    """images (..., ny, nx) -> visibilities (..., 2, n), and the adjoint
+    for the images' gradient (A is data, never differentiated); both
+    under _ieee_float32_matmul."""
+
+    @staticmethod
+    def forward(ctx, images, A):
+        ctx.save_for_backward(A)
+        ctx.image_shape = images.shape
+        ctx.dense = _is_dense(images, A)
+        ny, nx = images.shape[-2], images.shape[-1]
+        with _ieee_float32_matmul():
+            if ctx.dense:
+                x = utils.expand_dims(
+                    images.reshape(*images.shape[:-2], -1, 1), A.ndim,
+                    axis=-3)
+                ctx.operand_shape = x.shape
+                return torch.matmul(A, x).squeeze(-1)
+            imgs = utils.expand_dims(images, A.ndim - 1, axis=-3)
+            ctx.operand_shape = imgs.shape
+            cu, su, cv, sv = _factors(A, nx, ny)
+            tc = torch.einsum('...yx,...kx->...ky', imgs, cu)
+            ts = torch.einsum('...yx,...kx->...ky', imgs, su)
+            re = torch.sum(cv * tc - sv * ts, dim=-1)
+            im = -torch.sum(sv * tc + cv * ts, dim=-1)
+            return torch.stack([re, im], dim=-2)
+
+    @staticmethod
+    def backward(ctx, g):
+        (A,) = ctx.saved_tensors
+        shape = ctx.image_shape
+        ny, nx = shape[-2], shape[-1]
+        with _ieee_float32_matmul():
+            if ctx.dense:
+                d = torch.matmul(A.transpose(-1, -2), g.unsqueeze(-1))
+            else:
+                cu, su, cv, sv = _factors(A, nx, ny)
+                g_re, g_im = g[..., 0, :, None], g[..., 1, :, None]
+                d_tc = cv * g_re - sv * g_im           # (..., n, ny)
+                d_ts = -(sv * g_re + cv * g_im)
+                d = (torch.einsum('...ky,...kx->...yx', d_tc, cu)
+                     + torch.einsum('...ky,...kx->...yx', d_ts, su))
+        return d.sum_to_size(ctx.operand_shape).reshape(shape), None
+
+
+def apply_measurement_operator(images, A):
+    """images (..., ny, nx) -> visibilities (..., 2, n) [re, im]
+    (reference step.py:846-882). Two operator forms, told apart by their
+    shape:
+
+    * dense (..., 2, n, ny*nx): one batched matmul against vec(image)
+      (the re/im rows of the complex DTFT matrix);
+    * factored (..., 4, n, npix) [Cu, Su, Cv, Sv]: the separable type-3
+      DFT (observation.dft_factors) as two real products contracting the
+      image's x axis, then an elementwise combine and the y sum:
+          V = sum_y (Cv - i Sv) * (Tc - i Ts),   T* = I @ {Cu,Su}^T
+      Rectangular images: Cu/Su carry nx columns and Cv/Sv ny, zero-padded
+      to max(nx, ny) in the stack, sliced back out here.
+
+    The products run in IEEE float32 whatever
+    torch.backends.cuda.matmul's TF32 setting is, forward and backward.
+    Raises ValueError for an operator shape that fits neither form.
+    """
+    return _OperatorProduct.apply(images, A)
+
+
+def loss_fn_eht(params, predictor, target, sigma, A, t_frames_M, rt, scale,
+                dtype, fused=False):
+    """Chi-square losses on interferometric data (reference
+    step.py:885-942, network.py:486-564): 'vis', 'amp', 'cphase', 'bs',
+    'logcamp', 'camp'. A: per-frame operators in the layouts of
+    to_real_measurements; everything stays real. Padded rows (A = 0,
+    sigma = inf) add exactly zero to the loss and a finite zero to the
+    gradient. Returns (scale * chisq, [images])."""
+    images = image_plane_prediction(params, predictor, t_frames_M, rt,
+                                    fused=fused)
+    vis_ri = apply_measurement_operator(images, A)
+    if dtype == 'vis':
+        # vis_ri, target: (..., 2, nvis)
+        chisq = torch.sum(((vis_ri - target) / sigma) ** 2)
+    elif dtype == 'amp':
+        amp = torch.sqrt(vis_ri[..., 0, :] ** 2 + vis_ri[..., 1, :] ** 2
+                         + 1e-30)
+        chisq = torch.sum(((amp - target) / sigma) ** 2)
+    elif dtype in ('cphase', 'bs'):
+        # vis_ri: (..., 3, 2, ntri): the complex triple product in reals
+        re0, im0 = vis_ri[..., 0, 0, :], vis_ri[..., 0, 1, :]
+        re1, im1 = vis_ri[..., 1, 0, :], vis_ri[..., 1, 1, :]
+        re2, im2 = vis_ri[..., 2, 0, :], vis_ri[..., 2, 1, :]
+        re01 = re0 * re1 - im0 * im1
+        im01 = re0 * im1 + im0 * re1
+        re = re01 * re2 - im01 * im2
+        im = re01 * im2 + im01 * re2
+        if dtype == 'bs':
+            # padded rows have sigma = inf: both components add zero
+            bs_ri = torch.stack([re, im], dim=-2)
+            return scale * torch.sum(((bs_ri - target) / sigma) ** 2), \
+                [images]
+        # padded triangle rows have A = 0, so (re, im) = (0, 0), where
+        # atan2's backward is NaN even under a zero cotangent (sigma =
+        # inf): the double where keeps padding at exactly zero
+        safe = (re * re + im * im) > 1e-30
+        clphase = torch.atan2(torch.where(safe, im, 0.0),
+                              torch.where(safe, re, 1.0))
+        chisq = torch.sum(torch.where(
+            safe, (1.0 - torch.cos(target - clphase)) / sigma ** 2, 0.0))
+    elif dtype in ('logcamp', 'camp'):
+        # vis_ri: (..., 4, 2, nquad): per-leg visibilities, numerator legs
+        # (0, 1), denominator legs (2, 3)
+        amp2 = vis_ri[..., 0, :] ** 2 + vis_ri[..., 1, :] ** 2
+        # padded quadrangles have A = 0, so amp2 = 0, where log's backward
+        # is inf even under a zero cotangent (sigma = inf): double where
+        safe = torch.amin(amp2, dim=-2) > 1e-30
+        amp2 = torch.where(safe[..., None, :], amp2, 1.0)
+        lca = 0.5 * (torch.log(amp2[..., 0, :]) + torch.log(amp2[..., 1, :])
+                     - torch.log(amp2[..., 2, :])
+                     - torch.log(amp2[..., 3, :]))
+        model = torch.exp(lca) if dtype == 'camp' else lca
+        chisq = torch.sum(torch.where(
+            safe, ((model - target) / sigma) ** 2, 0.0))
+    else:
+        raise ValueError(f'eht dtype ({dtype}) not supported')
+    return scale * chisq, [images]
+
+
 def tv_loss(params, predictor, fov, resolution=32):
     """Finite-difference total variation of the emission field on a voxel
     grid of the canonical (t = 0) frame: one batched forward evaluation
@@ -569,23 +767,27 @@ def tv_loss(params, predictor, fov, resolution=32):
 # ---------------------------------------------------------------------------
 # steps
 # ---------------------------------------------------------------------------
-def make_step_fns(predictor, dtype='full', fused=False, tv_scale=0.0,
-                  tv_fov=None, tv_resolution=32):
-    """(grad_step, test_step) for the image loss, equivalent to the
-    reference's make_step_fns(kind='image', gather=True): batch args are
-    the FULL frame tensors (target, sigma, offset, t_frames) on the
-    device plus an `indices` tensor; the frame batch is selected inside
-    the step. Both return (loss, state, images); grad_step updates
+def make_step_fns(predictor, kind='image', dtype='full', fused=False,
+                  tv_scale=0.0, tv_fov=None, tv_resolution=32):
+    """(grad_step, test_step), equivalent to the reference's
+    make_step_fns(gather=True): batch args are the FULL frame tensors
+    (target, sigma, third, t_frames) on the device plus an `indices`
+    tensor; the frame batch is selected inside the step. The third is
+    `offset` for kind='image' and the measurement operator `A` for
+    kind='eht'. Both return (loss, state, images); grad_step updates
     `state` in place. tv_scale > 0 adds tv_scale * tv_loss over a cube of
     side tv_fov (2 * predictor.scale by default)."""
+    if kind not in ('image', 'eht'):
+        raise ValueError(f'unknown loss kind {kind!r}')
+    loss_fn = loss_fn_image if kind == 'image' else loss_fn_eht
 
     def compute_batch_loss(params, target, sigma, third, t_frames, indices,
                            rt, scale):
         take = lambda x: x.index_select(0, indices)
         t_frames_M = rt.frame_times_M(take(t_frames))
-        loss, aux = loss_fn_image(params, predictor, take(target),
-                                  take(sigma), take(third), t_frames_M, rt,
-                                  scale, dtype, fused=fused)
+        loss, aux = loss_fn(params, predictor, take(target), take(sigma),
+                            take(third), t_frames_M, rt, scale, dtype,
+                            fused=fused)
         if tv_scale:
             fov = 2.0 * predictor.scale if tv_fov is None else tv_fov
             loss = loss + tv_scale * tv_loss(params, predictor, fov,

@@ -1,8 +1,8 @@
 """GPU smoke run of bhnerf_tpu_torch: build the kernels, hold them against
 their plain versions at the shapes of the training paths, train a few
 steps of the Tutorial-3 image fit and of the ALMA polarized-lightcurve fit
-at full width, and recover a synthetic hotspot in 1000 steps, on one CUDA
-device.
+at full width, recover a synthetic hotspot from its movie in 1000 steps
+and from an ngEHT observation in 5000, on one CUDA device.
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 nvcc:
@@ -49,9 +49,21 @@ Phases (any failure raises and exits non-zero):
      backward launch per step; the float32 fit checkpoints every 500
      steps, and restore_params, a resumed Optimizer and keep pruning are
      checked against it; both kernels against their plain versions at the
-     fit's sample count in float32 and in bfloat16.
-The two lines before the last are the JSON recovery summary and the JSON
-kernel summary; the last line is {"ok": true, "device": {...}}.
+     fit's sample count in float32 and in bfloat16;
+  9. the EHT visibility path (bench_recovery.py --eht): the same hotspot's
+     movie over the ngEHT window 4.0-15.5 UT rendered on the card and
+     observed by the ngEHT array with thermal noise (observe_same), then
+     TrainStep.eht('vis', dense) for EHT_STEPS bfloat16 steps at npix 64,
+     held to the bar of EHT_MIN_PSNR dB and EHT_MAX_LC_ERR_PCT, with nvis,
+     the bytes of the operator on the card and a profile; then a 128x128
+     table from the host tracer, both kernels against their plain
+     versions at its sample count over the EHT window in float32 and
+     bfloat16, the dense and the factored operator against each other on
+     one batch, and EHT_OPERATOR_STEPS float32 steps of each with a
+     profile.
+The three lines before the last are the JSON recovery and EHT summaries
+and the JSON kernel summary; the last line is {"ok": true, "device":
+{...}}.
 """
 import dataclasses
 import json
@@ -94,6 +106,18 @@ RECOVERY_SAVE_PERIOD = 500
 # zeros scores 33.1 dB against this hotspot
 RECOVERY_MIN_PSNR = 55.0
 RECOVERY_MAX_LC_ERR_PCT = 0.5
+# the EHT fit of bench_recovery.py --eht (:76-133, 144-183): the recovery
+# hotspot observed by the ngEHT array in NT scans of EHT_TINT seconds over
+# 4.0-15.5 UT, fitted to its complex visibilities
+EHT_STEPS = 5000
+EHT_TINT = 30.0
+EHT_NPIX_PRODUCTION = 128       # the image size of the factored operator
+EHT_OPERATOR_STEPS = 200        # steps of each operator at that size
+# the bar, set before the first run on the card (PERF.md): the reference
+# reached 52.5 dB and 0.215% in bfloat16 at npix 64 with the dense
+# operator (RECOVERY.json); BASELINE.md asks for < 1% lightcurve error
+EHT_MIN_PSNR = 45.0
+EHT_MAX_LC_ERR_PCT = 1.0
 # published dense peaks of one H100 SXM (NVIDIA's data sheet): TF32 tensor
 # cores and HBM3
 TF32_FLOPS = 495e12
@@ -449,7 +473,8 @@ def profile_path(label, opt, train_step, crt, step_ms, steps=10):
     training path, after two warm-up steps that the profiler drops: the
     device's busy share of a step and each kernel's share of the device
     time. The profiler slows the host, so the busy share is also given
-    against the unprofiled step time `step_ms`."""
+    against the unprofiled step time `step_ms`. Returns the device's busy
+    milliseconds per step."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     from bhnerf_tpu_torch.train.optimizer import LogFn
@@ -495,6 +520,7 @@ def profile_path(label, opt, train_step, crt, step_ms, steps=10):
         ms = sum(m for key, m in rows if any(w in key for w in words))
         log(f'  {group}: {ms:.3f} ms/step = {100 * ms / busy_ms:.1f}% of '
             f'the device time')
+    return busy_ms
 
 
 def alma_host_precompute(device):
@@ -818,6 +844,16 @@ def alma_phase(kernels, device):
             entry['alma_stash_ms'] = native['ms']['fwd_stash']
 
 
+def recovery_hotspot():
+    """The hotspot of bench_recovery.py:99-103: 1.1 r_isco, std 0.7, on a
+    RECOVERY_RES^3 grid over the field of view."""
+    from bhnerf_tpu_torch import constants, emission
+    r_isco = float(constants.isco_pro(SPIN))
+    return emission.generate_hotspot(
+        resolution=(RECOVERY_RES,) * 3, rot_axis=[0, 0, 1], rot_angle=0.0,
+        orbit_radius=1.1 * r_isco, std=0.7, r_isco=r_isco, fov=FOV)
+
+
 def recovery_target(geos, device):
     """The ground truth of bench_recovery.py:99-120: a hotspot at 1.1
     r_isco with std 0.7 on a RECOVERY_RES^3 grid over the field of view,
@@ -829,9 +865,7 @@ def recovery_target(geos, device):
     from bhnerf_tpu_torch import constants, emission, units, utils
 
     r_isco = float(constants.isco_pro(SPIN))
-    hotspot = emission.generate_hotspot(
-        resolution=(RECOVERY_RES,) * 3, rot_axis=[0, 0, 1], rot_angle=0.0,
-        orbit_radius=1.1 * r_isco, std=0.7, r_isco=r_isco, fov=FOV)
+    hotspot = recovery_hotspot()
     t_frames = units.Quantity(np.linspace(0.0, 1.0, NT), 'hr')
     t_injection = -float(geos.r_o + FOV / 4)
     render = lambda frames, **kw: emission.image_plane_dynamics(
@@ -880,9 +914,11 @@ def recovery_target(geos, device):
     return hotspot, t_frames, t_injection, movie
 
 
-def recovery_kernel_checks(predictor, crt, t_frames, device):
-    """Both kernels against their plain versions at the recovery fit's
-    sample count and a 6-frame batch, in each compute dtype the fit runs,
+def recovery_kernel_checks(predictor, crt, t_frames, device,
+                           label='recovery'):
+    """Both kernels against their plain versions at the sample count of
+    `crt` and a 6-frame batch drawn from `t_frames`, in each compute dtype
+    the fits run,
     with their times and bounds. float32: emission atol 2e-6 / rtol 1e-4,
     F 1e-5, gradients 5e-5 normalised. bfloat16, against the plain
     version in bfloat16: emission atol 2e-3 / rtol 2e-2, F one bf16 step
@@ -917,7 +953,7 @@ def recovery_kernel_checks(predictor, crt, t_frames, device):
         fwd_err = float((em_k - em_p).abs().max())
         f_err = float((f_k - f_p).abs().max())
         bwd_err, norm_err = grad_errors(gp, gk)
-        line = (f'recovery N = {n}, {dtype}: emission {fwd_err:.3e} (atol '
+        line = (f'{label} N = {n}, {dtype}: emission {fwd_err:.3e} (atol '
                 f'{em_tol["atol"]:g}, rtol {em_tol["rtol"]:g}), F '
                 f'{f_err:.3e} (atol {f_tol:.3g}), gradients '
                 f'{norm_err:.3e} normalised (atol {g_tol:.0e})')
@@ -950,7 +986,7 @@ def recovery_kernel_checks(predictor, crt, t_frames, device):
             out[dtype][kind] = {'max_abs_err': err, 'ms': ms,
                                 'plain_ms': plain_ms, 'bound_ms': b_ms,
                                 'bound_by': b_by}
-            log(f'recovery N = {n}, {dtype} {kind}: kernel {ms:.3f} ms, '
+            log(f'{label} N = {n}, {dtype} {kind}: kernel {ms:.3f} ms, '
                 f'plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), '
                 f'kernel at {100 * b_ms / ms:.1f}% of it')
     return out
@@ -1100,6 +1136,291 @@ def recovery_phase(kernels, geos, device):
     return {k: run[0] for k, run in runs.items()}
 
 
+def eht_observation(geos, hotspot, npix, device):
+    """bench_recovery.py:97-133 with --eht for the npix x npix table
+    `geos`: the hotspot's movie of NT frames over 4.0-15.5 UT rendered on
+    the card by emission.image_plane_dynamics, observed by the ngEHT array
+    (empty_eht_obs, NT scans of EHT_TINT s) with thermal noise of seed 0
+    at a pixel size of fov_rad / npix. Returns (t_frames, t_injection,
+    movie, obs, fov_rad)."""
+    import torch
+    from bhnerf_tpu_torch import constants, emission, observation, units
+
+    t_frames = units.Quantity(np.linspace(4.0, 15.5, NT).astype(np.float32),
+                              'hr')
+    t_injection = -float(geos.r_o + FOV / 4)
+    t0 = time.perf_counter()
+    movie = emission.image_plane_dynamics(
+        hotspot, geos, geos.keplerian_omega(), t_frames, t_injection,
+        device=device)
+    torch.cuda.synchronize()
+    t_render = time.perf_counter() - t0
+    movie = movie.cpu().numpy()
+    array = observation.load_txt(os.path.join(REPO, 'eht_arrays',
+                                              'ngEHT.txt'))
+    fov_rad = float(FOV * constants.GM_c2(constants.sgra_mass).value
+                    / constants.sgra_distance.to('m').value)
+    t0 = time.perf_counter()
+    obs = observation.observe_same(
+        movie, np.asarray(t_frames.value), fov_rad / npix,
+        observation.empty_eht_obs(array, nt=NT, tint=EHT_TINT),
+        thermal_noise=True, seed=0)
+    t_obs = time.perf_counter() - t0
+    lc = movie.sum(axis=(-1, -2))
+    log(f'EHT npix {npix}: movie {movie.shape} over {float(t_frames[0].value)}'
+        f'-{float(t_frames[-1].value)} UT rendered on the card in '
+        f'{t_render:.2f} s, lightcurve {lc.min():.4g}..{lc.max():.4g}; ngEHT '
+        f'({array.nstations} stations) observed it in {t_obs:.1f} s: '
+        f'{int(obs.mask.sum())} visibilities in {obs.nscan} scans, '
+        f'{obs.mask.sum(1).min()}-{obs.mask.sum(1).max()} a scan')
+    if movie.shape != (NT, npix, npix) or not np.isfinite(movie).all() \
+            or not lc.min() > 0 or not np.isfinite(obs.vis[obs.mask]).all():
+        raise RuntimeError(f'EHT npix {npix}: bad movie or observation')
+    return t_frames, t_injection, movie, obs, fov_rad
+
+
+def eht_step(t_frames, obs, fov_rad, npix, predictor, operator, device):
+    """TrainStep.eht('vis', fused) with the `operator` form; prints what
+    its measurements hold on the card."""
+    import torch
+    from bhnerf_tpu_torch.train.optimizer import TrainStep
+
+    t0 = time.perf_counter()
+    train_step = TrainStep.eht(t_frames, obs, fov_rad, npix, predictor,
+                               dtype='vis', fused=True, operator=operator,
+                               device=device)
+    _, sigma, A, _ = train_step.args[0].device_args
+    torch.cuda.synchronize()
+    valid = torch.isfinite(sigma[:, 0]).sum(-1)
+    a_bytes = A.numel() * A.element_size()
+    log(f'EHT npix {npix}, {operator} operator: chisqdata, '
+        f'to_real_measurements and upload in {time.perf_counter() - t0:.1f} '
+        f's; nvis per frame {A.shape[-2]} ({int(valid.min())}-'
+        f'{int(valid.max())} valid); A {tuple(A.shape)} {A.dtype} = '
+        f'{a_bytes} B on the card ({a_bytes / NT / 1e6:.3f} MB a frame)')
+    if A.dtype != torch.float32 or not bool(torch.isfinite(A).all()):
+        raise RuntimeError('EHT operator is not finite float32')
+    return train_step, {'nvis': A.shape[-2], 'a_bytes': a_bytes,
+                        'a_shape': list(A.shape)}
+
+
+def eht_fit(geos, hotspot, device):
+    """(a) bench_recovery.py --eht at npix 64 through the port's entry
+    points: the recovery predictor (rmin 0) in bfloat16, compacted in the
+    'gather' layout, TrainStep.eht('vis', fused=True, operator='dense'),
+    Adam at lr 1e-3 -> 1e-5 for EHT_STEPS steps of batch BATCH; psnr_3d
+    and lc_err_pct against the bar. Returns (result, launches)."""
+    import torch
+    from bhnerf_tpu_torch import utils
+    from bhnerf_tpu_torch.models.fields import NeRFPredictor, sample_3d_grid
+    from bhnerf_tpu_torch.ops import fused
+    from bhnerf_tpu_torch.train.optimizer import Optimizer, total_movie_loss
+    from bhnerf_tpu_torch.train.step import (compact_raytracing_args,
+                                             raytracing_args)
+
+    t_frames, t_injection, movie, obs, fov_rad = eht_observation(
+        geos, hotspot, NUM_RAYS, device)
+    predictor = NeRFPredictor(scale=FOV / 2, rmin=0.0, rmax=FOV / 2,
+                              z_width=2.0, compute_dtype='bfloat16')
+    rt = raytracing_args(geos, geos.keplerian_omega(), t_injection,
+                         t_frames[0], device=device)
+    crt = compact_raytracing_args(rt, predictor, layout='gather')
+    train_step, data = eht_step(t_frames, obs, fov_rad, NUM_RAYS, predictor,
+                                'dense', device)
+    opt = Optimizer({'num_iters': EHT_STEPS, 'lr_init': 1e-3,
+                     'lr_final': 1e-5}, predictor, crt, device=device)
+    fused.render_fwd.launches = 0
+    fused.render_bwd.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt.run(BATCH, train_step, crt, verbose=False)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = (fused.render_fwd.launches, fused.render_bwd.launches)
+
+    vol = sample_3d_grid(predictor, opt.params, fov=FOV,
+                         resolution=RECOVERY_RES)
+    psnr_3d = utils.psnr(hotspot.data, vol)
+    _, frames = total_movie_loss(8, opt.state, train_step, crt,
+                                 return_frames=True)
+    lc_rec, lc_true = frames.sum(axis=(-1, -2)), movie.sum(axis=(-1, -2))
+    lc_err_pct = float(100.0 * np.mean(np.abs(lc_rec - lc_true))
+                       / np.mean(lc_true))
+    result = {'psnr_3d': psnr_3d, 'lc_err_pct': lc_err_pct, 'wall_s': wall_s,
+              'steps_per_s': EHT_STEPS / wall_s, 'n': crt.coords.shape[1],
+              'steps': opt.state.step, 'final_loss': float(opt.loss), **data}
+    log(f'EHT fit, npix {NUM_RAYS}, dense, bfloat16: {EHT_STEPS} steps of '
+        f'batch {BATCH} at N = {result["n"]} in {wall_s:.2f} s '
+        f'({result["steps_per_s"]:.2f} steps/s); launches fwd {launches[0]}, '
+        f'bwd {launches[1]}; final loss {result["final_loss"]:.6g}; psnr_3d '
+        f'{psnr_3d:.2f} dB (bar {EHT_MIN_PSNR}), lc_err_pct {lc_err_pct:.4f} '
+        f'(bar {EHT_MAX_LC_ERR_PCT}); the reference: 52.5 dB, 0.215% '
+        f'(bfloat16)')
+    if launches != (EHT_STEPS, EHT_STEPS):
+        raise RuntimeError(f'EHT fit launched {launches}, not one forward '
+                           f'and one backward per step')
+    if frames.shape != movie.shape or not np.isfinite(frames).all() \
+            or vol.shape != (RECOVERY_RES,) * 3:
+        raise RuntimeError(f'EHT fit: bad outputs {frames.shape}, '
+                           f'{vol.shape}')
+    if not psnr_3d >= EHT_MIN_PSNR or not lc_err_pct <= EHT_MAX_LC_ERR_PCT:
+        raise RuntimeError(f'EHT fit missed the bar: {psnr_3d:.2f} dB, '
+                           f'{lc_err_pct:.4f}%')
+    result['device_ms_per_step'] = profile_path(
+        'EHT npix 64 dense bf16', opt, train_step, crt, 1e3 / result[
+            'steps_per_s'])
+    return result, launches
+
+
+def eht_operators_agree(steps, crt, predictor, device):
+    """The dense and the factored operator on one fixed frame batch and
+    set of params (seeded, head bias lifted so that the images are
+    macroscopic), through the kernels: the vis loss within rtol 1e-4, the
+    visibilities of the same images within rtol 2e-4 and atol 2e-5 of the
+    largest (tests/test_observation.py:809's tolerance, there on
+    unit-scale images), and the normalised gradient difference."""
+    import torch
+    from bhnerf_tpu_torch.train import step
+
+    idx = torch.as_tensor(np.random.default_rng(8).choice(NT, BATCH, False),
+                          device=device)
+    out = {}
+    for operator, train_step in steps.items():
+        params = predictor.init_params(
+            generator=torch.Generator().manual_seed(0), device=device)
+        with torch.no_grad():
+            params.mlp.layers[-1].bias += 8.0
+        target, sigma, A, t_hr = (x.index_select(0, idx) for x in
+                                  train_step.args[0].device_args)
+        loss, [images] = step.loss_fn_eht(
+            params, predictor, target, sigma, A, crt.frame_times_M(t_hr), crt,
+            1.0, 'vis', fused=True)
+        loss.backward()
+        with torch.no_grad():
+            vis = step.apply_measurement_operator(images, A)
+        out[operator] = (float(loss.detach()), vis,
+                         [p.grad for p in params.parameters()])
+    (l_d, v_d, g_d), (l_f, v_f, g_f) = out['dense'], out['factored']
+    vmax = float(v_d.abs().max())
+    diff = (v_f - v_d).abs()
+    v_err = float(diff.max()) / vmax
+    # <= 1 where every visibility is inside rtol 2e-4 / atol 2e-5 * vmax
+    v_tol = float((diff / (2e-4 * v_d.abs() + 2e-5 * vmax)).max())
+    g_err = max(float((a - b).abs().max() / (a.abs().max() + 1e-12))
+                for a, b in zip(g_d, g_f))
+    loss_rel = abs(l_f - l_d) / abs(l_d)
+    log(f'EHT npix {EHT_NPIX_PRODUCTION}, dense against factored on one batch '
+        f'{idx.tolist()}: vis loss {l_d:.10g} against {l_f:.10g} (rel '
+        f'{loss_rel:.3e}, rtol 1e-4); visibilities differ by at most '
+        f'{v_err:.3e} of the largest |V| ({vmax:.4g}), {v_tol:.3f} of the '
+        f'tolerance rtol 2e-4 + atol 2e-5 of the largest; gradients differ '
+        f'by {g_err:.3e} normalised')
+    if not loss_rel <= 1e-4 or not v_tol <= 1.0 or not vmax > 0:
+        raise RuntimeError('dense and factored operators disagree')
+    return {'loss_rel': loss_rel, 'vis_err': v_err, 'vis_tol_share': v_tol,
+            'grad_err': g_err}
+
+
+def eht_operator_run(label, train_step, crt, predictor, device):
+    """EHT_OPERATOR_STEPS steps of `train_step` in the per-step loop (the
+    loop synchronises at its end only) and 10 profiled steps. Returns
+    (steps/s, device ms per step, launches)."""
+    import torch
+    from bhnerf_tpu_torch.ops import fused
+    from bhnerf_tpu_torch.train.optimizer import Optimizer
+
+    opt = Optimizer({'num_iters': EHT_OPERATOR_STEPS, 'lr_init': 1e-3,
+                     'lr_final': 1e-5}, predictor, crt, device=device)
+    fused.render_fwd.launches = 0
+    fused.render_bwd.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt.run(BATCH, train_step, crt, verbose=False)
+    torch.cuda.synchronize()
+    steps_per_s = EHT_OPERATOR_STEPS / (time.perf_counter() - t0)
+    launches = (fused.render_fwd.launches, fused.render_bwd.launches)
+    log(f'{label}: {EHT_OPERATOR_STEPS} steps of batch {BATCH} at N = '
+        f'{crt.coords.shape[1]}, {steps_per_s:.2f} steps/s; launches fwd '
+        f'{launches[0]}, bwd {launches[1]}; final loss {float(opt.loss):.6g}')
+    if launches != (EHT_OPERATOR_STEPS, EHT_OPERATOR_STEPS) \
+            or not np.isfinite(float(opt.loss)):
+        raise RuntimeError(f'{label}: launches {launches}, loss {opt.loss}')
+    busy_ms = profile_path(label, opt, train_step, crt, 1e3 / steps_per_s)
+    return steps_per_s, busy_ms, launches
+
+
+def eht_production(hotspot, device):
+    """(b) the production operator at npix EHT_NPIX_PRODUCTION: its table
+    from the host tracer, both kernels against their plain versions at its
+    N over the ngEHT window in float32 and bfloat16, dense against
+    factored, and EHT_OPERATOR_STEPS steps of each in float32. Returns
+    (summary, kernel checks)."""
+    from bhnerf_tpu_torch.geodesics import image_plane_geos
+    from bhnerf_tpu_torch.models.fields import NeRFPredictor
+    from bhnerf_tpu_torch.train.step import (compact_raytracing_args,
+                                             raytracing_args)
+
+    npix = EHT_NPIX_PRODUCTION
+    t0 = time.perf_counter()
+    geos = image_plane_geos(spin=SPIN, inclination=np.deg2rad(60.0),
+                            alpha_range=(-FOV / 2, FOV / 2),
+                            beta_range=(-FOV / 2, FOV / 2), ngeo=NGEO,
+                            num_alpha=npix, num_beta=npix, n_fine=N_FINE)
+    t_geo = time.perf_counter() - t0
+    for f in ('r', 'theta', 'phi', 't'):
+        if not np.isfinite(getattr(geos, f)).all():
+            raise RuntimeError(f'non-finite geodesic table {f}')
+    t_frames, t_injection, _, obs, fov_rad = eht_observation(
+        geos, hotspot, npix, device)
+    predictor = NeRFPredictor(scale=FOV / 2, rmin=0.0, rmax=FOV / 2,
+                              z_width=2.0)
+    rt = raytracing_args(geos, geos.keplerian_omega(), t_injection,
+                         t_frames[0], device=device)
+    crt = compact_raytracing_args(rt, predictor, layout='gather')
+    n_in = int((crt.t_geos_rel > -1e29).sum())
+    log(f'EHT npix {npix}: geodesics {npix}x{npix}x{NGEO} (n_fine {N_FINE}, '
+        f'f64) in {t_geo:.1f} s; compacted {n_in}/{npix * npix * NGEO} '
+        f'samples, padded N = {crt.coords.shape[1]}')
+    checks = recovery_kernel_checks(
+        predictor, crt, np.asarray(t_frames.value, np.float32), device,
+        label=f'EHT npix {npix}')
+    steps, data = {}, {}
+    for operator in ('dense', 'factored'):
+        steps[operator], data[operator] = eht_step(
+            t_frames, obs, fov_rad, npix, predictor, operator, device)
+    agree = eht_operators_agree(steps, crt, predictor, device)
+    runs = {op: eht_operator_run(f'EHT npix {npix} {op} f32', steps[op],
+                                 crt, predictor, device)
+            for op in ('dense', 'factored')}
+    summary = {'n': crt.coords.shape[1], 'n_in_domain': n_in,
+               'geodesics_s': t_geo, **agree,
+               **{op: {**data[op], 'steps_per_s': r[0],
+                       'device_ms_per_step': r[1]}
+                  for op, r in runs.items()}}
+    launches = {op: r[2] for op, r in runs.items()}
+    return summary, checks, launches
+
+
+def eht_phase(kernels, geos, device):
+    """The EHT visibility path on the card: (a) the npix-64 recovery fit,
+    (b) the npix-128 production operator. Fills the EHT keys of the JSON
+    kernel entries and returns the EHT summary."""
+    t0 = time.perf_counter()
+    hotspot = recovery_hotspot()
+    fit, fit_launches = eht_fit(geos, hotspot, device)
+    t_fit = time.perf_counter() - t0
+    production, checks, launches = eht_production(hotspot, device)
+    log(f'EHT phase: {time.perf_counter() - t0:.1f} s, of which the npix-64 '
+        f'fit {t_fit:.1f} s')
+    for i, (entry, kind) in enumerate(zip(kernels, ('fwd', 'bwd'))):
+        entry['eht'] = {
+            'launches': fit_launches[i], 'n': fit['n'],
+            'npix128': {'n': production['n'],
+                        'launches': {op: l[i] for op, l in launches.items()},
+                        **{dtype: c[kind] for dtype, c in checks.items()}}}
+    return {'npix64_dense_bf16': fit, 'npix128_f32': production}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1138,10 +1459,12 @@ def main():
     profile_path('Tutorial-3', opt, train_step, crt, step_ms)
     alma_phase(kernels, device)
     recovery = recovery_phase(kernels, geos, device)
+    eht = eht_phase(kernels, geos, device)
     for entry, count in zip(kernels, launches):
         entry['launches'] = count
         entry['launches_per_step'] = count / STEPS
     print(json.dumps({'recovery': recovery}), flush=True)
+    print(json.dumps({'eht': eht}), flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

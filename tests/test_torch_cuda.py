@@ -464,3 +464,130 @@ def test_image_plane_dynamics_on_card_matches_cpu(cuda_device):
     assert scale > 0
     np.testing.assert_allclose(movies[1] / scale, movies[0] / scale,
                                atol=1e-5, rtol=0)
+
+
+def _eht_problem(device, dtype, operator, nt=6, npix=16, ngeo=32):
+    """A seeded synthetic 16x16x32 ray table compacted on `device`, frames
+    over the ngEHT scan window (4.0-15.5 UT, ~2,020 M: Omega * t reaches
+    ~160 rad) and the EHT2017 observation of a seeded movie as `dtype`
+    measurements with the `operator` form, on `device`."""
+    from bhnerf_tpu_torch import constants, observation
+    rng = np.random.default_rng(6)
+    shape = (npix, npix, ngeo)
+    fields = dict(
+        coords=np.stack([rng.uniform(-6, 6, shape), rng.uniform(-6, 6, shape),
+                         rng.uniform(-1.5, 1.5, shape)]),
+        Omega=rng.uniform(0.02, 0.08, shape), g=rng.uniform(0.5, 1.5, shape),
+        dtau=rng.uniform(0.5, 1.0, shape), Sigma=rng.uniform(0.5, 1.0, shape),
+        t_geos_rel=rng.uniform(0.0, 50.0, shape))
+    t_hr = np.linspace(4.0, 15.5, nt).astype(np.float32)
+    rt = step.RayTracingArgs(
+        **{k: torch.as_tensor(v.astype(np.float32)).to(device)
+           for k, v in fields.items()}, J=1.0,
+        t_injection=torch.zeros((), device=device), t_start_obs=4.0,
+        t_to_M=1.0 / constants.GM_c3(constants.sgra_mass).to('hr').value,
+        t_units=units.hr)
+    pred = NeRFPredictor(scale=8.0, rmax=8.0, z_width=2.0)
+    crt = step.compact_raytracing_args(rt, pred, layout='gather')
+    ob = observation.observe_same(
+        rng.random((nt, npix, npix)), t_hr, 1e-10,
+        observation.empty_eht_obs(observation.load_txt(
+            'eht_arrays/EHT2017.txt'), nt=nt, tint=60.0), seed=0)
+    data = step.to_real_measurements(dtype, *ob.chisqdata(
+        t_hr, dtype, 1e-10 * npix, npix, operator=operator))
+    data = [torch.as_tensor(x).to(device) for x in data]
+    return pred, crt, crt.frame_times_M(torch.as_tensor(t_hr).to(device)), \
+        data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('operator', ['dense', 'factored'])
+@pytest.mark.parametrize('dtype', ['vis', 'logcamp'])
+def test_eht_losses_match_plain_on_card(cuda_device, monkeypatch, dtype,
+                                        operator):
+    """The EHT loss and its parameter gradients through the kernels
+    against the same loss through the kernels' plain versions, on the
+    card, over the 11.5-hr scan window: loss rtol 1e-4, gradients atol
+    1e-4 after normalising by their max; one launch of each kernel."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pred, crt, t_M, data = _eht_problem(cuda_device, dtype, operator)
+    results = []
+    for route in ('kernel', 'plain'):
+        if route == 'plain':
+            monkeypatch.setattr(fused, 'render_fwd', fused.render_fwd_plain)
+            monkeypatch.setattr(fused, 'render_bwd', fused.render_bwd_plain)
+        params = pred.init_params(generator=torch.Generator().manual_seed(0),
+                                  device=cuda_device)
+        with torch.no_grad():
+            params.mlp.layers[-1].bias += 8.0
+        fused.render_fwd.launches = fused.render_bwd.launches = 0
+        loss, [images] = step.loss_fn_eht(params, pred, *data, t_M, crt, 1.0,
+                                          dtype, fused=True)
+        loss.backward()
+        torch.cuda.synchronize()
+        if route == 'kernel':
+            assert (fused.render_fwd.launches,
+                    fused.render_bwd.launches) == (1, 1)
+        assert tuple(images.shape) == (6, 16, 16)
+        results.append((float(loss.detach()),
+                        [p.grad.cpu().numpy() for p in params.parameters()]))
+    (loss_k, grads_k), (loss_p, grads_p) = results
+    assert np.isfinite(loss_k) and loss_k > 0
+    np.testing.assert_allclose(loss_k, loss_p, rtol=1e-4)
+    for a, b in zip(grads_k, grads_p):
+        scale = np.abs(b).max() + 1e-8
+        np.testing.assert_allclose(a / scale, b / scale, atol=1e-4)
+
+
+def _allow_tf32(allow):
+    """Set cuBLAS's TF32 permission; return a function that restores the
+    previous setting."""
+    mm = torch.backends.cuda.matmul
+    prev = mm.fp32_precision
+    mm.fp32_precision = 'tf32' if allow else 'ieee'
+    return lambda: setattr(mm, 'fp32_precision', prev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('operator', ['dense', 'factored'])
+def test_measurement_operator_ignores_tf32_on_card(cuda_device, operator):
+    """The operator's products, forward and backward, give bitwise the
+    same visibilities and image cotangents with TF32 allowed as without,
+    and agree with float64 on the host to 1e-5 of the max (npix 64: a
+    dense visibility sums 4096 terms); a plain torch.matmul of the same
+    depth shows that TF32 was on."""
+    _, _, _, (_, _, A) = _eht_problem(cuda_device, 'vis', operator, nt=2,
+                                      npix=64, ngeo=2)
+    rng = np.random.default_rng(7)
+    img = torch.as_tensor(rng.random((2, 64, 64)), dtype=torch.float32,
+                          device=cuda_device)
+    g = torch.as_tensor(rng.standard_normal((2, 2, A.shape[-2])),
+                        dtype=torch.float32, device=cuda_device)
+    # a plain product of the same depth that TF32 does reach
+    rows = A.reshape(-1, A.shape[-1])[:256]
+    cols = torch.as_tensor(rng.random((A.shape[-1], 64)),
+                           dtype=torch.float32, device=cuda_device)
+    out = {}
+    for allow in (False, True):
+        restore = _allow_tf32(allow)
+        try:
+            x = img.clone().requires_grad_()
+            vis = step.apply_measurement_operator(x, A)
+            vis.backward(g)
+            dense = rows @ cols
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        out[allow] = (vis.detach(), x.grad, dense)
+    assert torch.equal(out[True][0], out[False][0])
+    assert torch.equal(out[True][1], out[False][1])
+    x64 = img.double().cpu().requires_grad_()
+    vis64 = step.apply_measurement_operator(x64, A.double().cpu())
+    vis64.backward(g.double().cpu())
+    for ours, ref in ((out[False][0], vis64), (out[False][1], x64.grad)):
+        ref = ref.detach().numpy()
+        np.testing.assert_allclose(ours.cpu().numpy(), ref, rtol=0,
+                                   atol=1e-5 * np.abs(ref).max())
+    ref = (rows.double() @ cols.double()).cpu().numpy()
+    err = lambda r: float(np.abs(r.cpu().numpy() - ref).max())
+    assert err(out[True][2]) > 10 * err(out[False][2])
