@@ -15,3 +15,5 @@ from bhnerf_tpu_torch import models
 from bhnerf_tpu_torch import train
 from bhnerf_tpu_torch import alma
 from bhnerf_tpu_torch import observation
+from bhnerf_tpu_torch import config
+from bhnerf_tpu_torch import visualization

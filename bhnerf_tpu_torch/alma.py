@@ -1,16 +1,19 @@
 """ALMA polarized-lightcurve workflow.
 
-PyTorch counterpart of `bhnerf_tpu/alma.py` (:21-161): data preprocessing
-for the Apr-11-2017 Sgr A* flare, the polarized image-plane model
-(Keplerian flow + fluid-frame B field + parallel transport) and sub-pixel
-ray ensembles of ray constants. Everything here is once-per-configuration
-host work in numpy float64; the geodesics come from the host tracer. The
-chi-square scans over checkpoint grids are not ported yet (they need
-checkpoints).
+PyTorch counterpart of `bhnerf_tpu/alma.py`: data preprocessing for the
+Apr-11-2017 Sgr A* flare, the polarized image-plane model (Keplerian flow
++ fluid-frame B field + parallel transport), sub-pixel ray ensembles of
+ray constants (:21-161), and the chi-square of trained checkpoints and of
+a grid of them (:164-247). The model is once-per-configuration host work
+in numpy float64 with the geodesics from the host tracer; the checkpoints
+are the port's `torch.save` files, rendered on the device of the ray
+constants.
 """
 from __future__ import annotations
 
 import csv
+import dataclasses
+import os
 
 import numpy as np
 
@@ -135,3 +138,97 @@ def get_raytracing_args(inc, spin, params, stokes=('I', 'Q', 'U'),
             units.Quantity(params['t_start_obs'], 'hr'), J[J_inds],
             device=device))
     return args_list
+
+
+def image_plane_checkpoint(raytracing_args, checkpoint_dir, t, rmin=0.0,
+                           rmax=np.inf, batchsize=20):
+    """The image-plane movie of the latest checkpoint under
+    `checkpoint_dir` at times `t` (reference alma.py:164-190). The
+    predictor is the checkpoint's own (its yaml), with its domain narrowed
+    to [rmin, rmax]; the movie is the test-mode mean over every variant of
+    the ray-constant ensemble, rendered through the fused kernels on the
+    device of the ray constants. Returns (nt, nstokes, na, nb) numpy."""
+    from bhnerf_tpu_torch.models.fields import NeRFPredictor
+    from bhnerf_tpu_torch.train import (TrainState, TrainStep, make_optimizer,
+                                        restore_params, total_movie_loss)
+
+    predictor = NeRFPredictor.from_yml(checkpoint_dir)
+    predictor = dataclasses.replace(
+        predictor, rmax=min(rmax, predictor.rmax),
+        rmin=max(rmin, predictor.rmin))
+    rt_list = (list(raytracing_args)
+               if isinstance(raytracing_args, (list, tuple))
+               else [raytracing_args])
+    device = rt_list[0].coords.device
+    params = restore_params(checkpoint_dir,
+                            predictor.init_params(device=device))
+    state = TrainState.create(params, make_optimizer(10))
+    num_stokes = rt_list[0].num_stokes
+    train_step = TrainStep.image(t, np.zeros((len(t), num_stokes)),
+                                 predictor, dtype='lc', fused=True,
+                                 device=device)
+    _, image_plane = total_movie_loss(batchsize, state, train_step, rt_list,
+                                      return_frames=True)
+    return image_plane
+
+
+def chi2_lightcurves(raytracing_args, checkpoint_dir, t, data, sigma=1.0,
+                     rmin=0.0, rmax=np.inf, batchsize=20):
+    """Lightcurve chi^2 per frame of a trained checkpoint against `data`
+    (nt, nstokes) (reference alma.py:193-200)."""
+    image_plane = image_plane_checkpoint(raytracing_args, checkpoint_dir,
+                                         t, rmin, rmax, batchsize)
+    return np.sum(((image_plane.sum(axis=(-1, -2)) - np.asarray(data))
+                   / sigma) ** 2) / len(t)
+
+
+def chi2_df(inclinations, spins, seeds, params, checkpoint_fmt, t, data,
+            stokes=('I', 'Q', 'U'), sigma=1.0, rot_angle=0.0,
+            num_subpixel_rays=1, checkpoint_name='checkpoint_50000',
+            backend='cpu', mesh=None, device='cuda'):
+    """chi^2(inclination or spin x seed) as a pandas DataFrame over a grid
+    of checkpoint directories checkpoint_fmt.format(index, seed)
+    (reference alma.py:203-247); a cell whose directory lacks
+    `checkpoint_name` stays NaN. As in the reference, a filled cell is the
+    chi^2 of its directory's latest checkpoint (image_plane_checkpoint),
+    which is `checkpoint_name` only if no later one was saved. The ray
+    constants are traced on the host
+    once per grid point and live on `device`. The device tracer
+    (backend='device') and a device mesh are not ported yet."""
+    import pandas as pd
+
+    if backend != 'cpu' or mesh is not None:
+        raise NotImplementedError(
+            "chi2_df traces on the host only (backend='cpu', mesh=None)")
+    inclinations = np.atleast_1d(inclinations)
+    spins = np.atleast_1d(spins)
+    if len(inclinations) == 1 and len(spins) > 1:
+        indices, index_name = spins, 'spin'
+        inclinations = np.full(len(spins), float(inclinations[0]))
+    elif len(inclinations) >= 1 and len(spins) == 1:
+        indices, index_name = inclinations, 'inc'
+        spins = np.full(len(inclinations), float(spins[0]))
+    else:
+        raise ValueError('only 1D grids (inc or spin) are supported')
+
+    inc_prev = spin_prev = np.nan
+    rt_args = None
+    data_fit = np.full((len(indices), len(seeds)), np.nan)
+    for i, (inc, spin) in enumerate(zip(inclinations, spins)):
+        for j, seed in enumerate(seeds):
+            checkpoint_dir = checkpoint_fmt.format(indices[i], seed)
+            if not os.path.exists(os.path.join(checkpoint_dir,
+                                               checkpoint_name)):
+                continue
+            if inc_prev != inc or spin_prev != spin:
+                rt_args = get_raytracing_args(
+                    np.deg2rad(inc), spin, params, stokes, rot_angle,
+                    num_subpixel_rays, device=device)
+                inc_prev, spin_prev = inc, spin
+            data_fit[i, j] = chi2_lightcurves(rt_args, checkpoint_dir, t,
+                                              data, sigma)
+
+    df = pd.DataFrame(data_fit, index=indices,
+                      columns=[f'seed {s}' for s in seeds])
+    df.index.name = index_name
+    return df

@@ -236,7 +236,7 @@ def _pad_width(weights, biases, cfg):
     out_w, out_b = [], []
     for i, (w, b) in enumerate(zip(weights, biases)):
         rows = padded if i < depth else w.shape[0]
-        cols = _padded_columns(i, cfg, w.shape[1], padded).to(w.device)
+        cols = _padded_columns(i, cfg, w.shape[1], padded, w.device)
         wp = w.new_zeros((rows, w.shape[1] + (padded - width
                                               if i > 0 else 0)))
         wp[:w.shape[0], cols] = w
@@ -247,16 +247,18 @@ def _pad_width(weights, biases, cfg):
     return out_w, out_b, (depth, padded, do_skip)
 
 
-def _padded_columns(i, cfg, n_in, padded):
-    """Indices of layer i's `n_in` input columns inside the input of the
-    MLP padded to hidden width `padded`: layer 0 reads F unchanged; a
-    later layer reads h (width units) at the front and, after the skip,
-    F behind the padded h."""
+def _padded_columns(i, cfg, n_in, padded, device):
+    """Indices on `device` of layer i's `n_in` input columns inside the
+    input of the MLP padded to hidden width `padded`: layer 0 reads F
+    unchanged; a later layer reads h (width units) at the front and,
+    after the skip, F behind the padded h. Built on the device, so a
+    training step copies nothing from the host."""
     width = cfg[1]
     if i == 0:
-        return torch.arange(n_in)
-    return torch.cat([torch.arange(width),
-                      torch.arange(padded, padded + n_in - width)])
+        return torch.arange(n_in, device=device)
+    return torch.cat([torch.arange(width, device=device),
+                      torch.arange(padded, padded + n_in - width,
+                                   device=device)])
 
 
 def _unpad_grads(gw, gb, weights, biases, cfg, padded):
@@ -264,8 +266,8 @@ def _unpad_grads(gw, gb, weights, biases, cfg, padded):
     entries of padded units and columns are dropped."""
     if padded == cfg[1]:
         return gw, gb
-    gw = [g[:w.shape[0], _padded_columns(i, cfg, w.shape[1], padded)
-            .to(g.device)].contiguous()
+    gw = [g[:w.shape[0], _padded_columns(i, cfg, w.shape[1], padded,
+                                         g.device)].contiguous()
           for i, (g, w) in enumerate(zip(gw, weights))]
     gb = [g[:b.shape[0]].contiguous() for g, b in zip(gb, biases)]
     return gw, gb
@@ -504,7 +506,12 @@ def _flatten_sample_args(coords, omega, tg, smask, n):
     dev = coords.device
 
     def row(x, fill=0.0):
-        x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        # a python scalar is filled on the device: as_tensor would copy
+        # it from the host and synchronise
+        x = (torch.full(coords.shape[1:], float(x), dtype=torch.float32,
+                        device=dev)
+             if isinstance(x, (int, float)) else
+             torch.as_tensor(x, dtype=torch.float32, device=dev))
         x = torch.broadcast_to(x, coords.shape[1:]).reshape(1, n)
         return torch.nn.functional.pad(x, (0, pad), value=fill)
 

@@ -10,5 +10,7 @@ from bhnerf_tpu_torch.train.step import (CompactRayArgs, RayTracingArgs,
                                          compact_raytracing_args,
                                          image_plane_prediction,
                                          loss_fn_eht, loss_fn_image,
-                                         make_step_fns, raytracing_args,
+                                         make_composed_scan_step,
+                                         make_scan_step, make_step_fns,
+                                         raytracing_args, stack_ensemble,
                                          to_real_measurements)

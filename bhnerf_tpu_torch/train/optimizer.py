@@ -1,16 +1,18 @@
 """Training orchestration: the Optimizer loop, TrainStep, frame batching.
 
-PyTorch counterpart of `bhnerf_tpu/train/optimizer.py` without its
-scan-chunked loop: `total_movie_loss` (:19-46), the SIGTERM scope
-`_GracefulShutdown` (:49-88), `Optimizer` with its checkpoints, per-step
-`run` loop and non-finite guard (:90-200, :317), the composable
+PyTorch counterpart of `bhnerf_tpu/train/optimizer.py`:
+`total_movie_loss` (:19-46), the SIGTERM scope `_GracefulShutdown`
+(:49-88), `Optimizer` with its checkpoints, its per-step `run` loop and
+non-finite guard, and its scan-chunked loop (:90-317), the composable
 `TrainStep` over one set of ray constants or a sub-pixel ensemble of
-them, with its image and EHT losses (:322-476), `TemporalBatchedArgs`
-(:483-575) and `LogFn` (:577).
+them, with its image and EHT losses and the per-loss `scan_metas`
+(:322-476), `TemporalBatchedArgs` (:483-575) and `LogFn` (:577).
 Frame batches and, for an ensemble, the variant of each gradient step are
-drawn on the host from the Optimizer's explicit `torch.Generator`; the
-full frame tensors live on the training device and each step selects its
-batch there, so a step uploads only its indices.
+drawn on the host from the Optimizer's explicit `torch.Generator`, in the
+same order by both loops; the full frame tensors live on the training
+device and each step selects its batch there. The per-step loop uploads
+one step's indices at a time; the chunked loop uploads a chunk's indices
+once, from pinned memory, and reads one loss back per chunk.
 """
 from __future__ import annotations
 
@@ -47,6 +49,13 @@ def total_movie_loss(batchsize, state, train_step, raytracing_args,
     if return_frames:
         output = (output, np.concatenate(frames))
     return output
+
+
+def _fold_seed(seed, step):
+    """A generator seed from (seed, step): the starting step folded into
+    the run's seed, as jax.random.fold_in does in the reference."""
+    return int(np.random.SeedSequence([int(seed), int(step)])
+               .generate_state(1)[0])
 
 
 class _GracefulShutdown:
@@ -139,21 +148,53 @@ class Optimizer:
         return self.state.params
 
     def run(self, batchsize, train_step, raytracing_args, log_fns=(),
-            verbose=True, nan_check_period=1000):
+            verbose=True, nan_check_period=1000, scan_chunk=0):
         """Training loop (reference optimization.py:123-139) with a
         periodic non-finite-loss guard (checking every step would force a
         host sync per step). raytracing_args may be a list, a sub-pixel
         ray ensemble: each step then trains on one variant drawn from the
         generator. A SIGTERM checkpoints the current step and returns; a
-        KeyboardInterrupt returns (reference optimizer.py:178-200)."""
+        KeyboardInterrupt returns (reference optimizer.py:178-200).
+
+        scan_chunk > 0 runs up to `scan_chunk` steps per chunk, whose
+        frame indices go to the device in one upload, and reads the loss
+        back once per chunk (reference optimizer.py:128-315). Chunk
+        boundaries align to every save_period and every LogFn.log_period
+        > 1, so checkpoints and those callbacks fire at the per-step
+        loop's steps; log_period == 1 callbacks are replayed from the
+        chunk's losses and see end-of-chunk params; the non-finite guard
+        and SIGTERM are checked once per chunk. As in the reference, an
+        ensemble that stack_ensemble would refuse warns and takes the
+        per-step loop. Both loops draw the same batches and variants from
+        the same generator, so they give the same loss series.
+
+        A run that starts after step 1 (a resumed or extended run) draws
+        from a generator seeded by (seed, starting step), so that it does
+        not replay the first run's batches (reference optimizer.py:
+        212-215); a fresh run keeps drawing from the generator that drew
+        its initial weights."""
         self.init_step = self.state.step + 1
         self.final_step = self.init_step + self.num_iters
         self.log_fns = list(log_fns)
         self.train_step = train_step
         self.raytracing_args = raytracing_args
-        report = max(1, self.num_iters // 10)
-        num_variants = len(_as_list(raytracing_args))
+        rt_list = _as_list(raytracing_args)
+        num_variants = len(rt_list)
+        if self.init_step > 1:
+            self.generator = torch.Generator().manual_seed(
+                _fold_seed(self.seed, self.init_step))
 
+        if scan_chunk and train_step.scan_metas is not None:
+            try:
+                step_lib.check_ensemble(rt_list)
+            except ValueError as e:
+                warnings.warn(f'ensemble not scannable ({e}); falling back '
+                              f'to the per-step loop')
+            else:
+                return self._run_scan(batchsize, train_step, rt_list,
+                                      scan_chunk, verbose, num_variants)
+
+        report = max(1, self.num_iters // 10)
         try:
             with _GracefulShutdown() as shutdown:
                 for self.step in range(self.init_step, self.final_step):
@@ -180,27 +221,129 @@ class Optimizer:
         except KeyboardInterrupt:
             return
 
+    def _draw(self, batchsize, train_step, num_variants):
+        """One step's frame batch and variant from the generator."""
+        batch = train_step.args[0].sample(batchsize, self.generator)
+        variant = (int(torch.randint(num_variants, (),
+                                     generator=self.generator))
+                   if num_variants > 1 else 0)
+        return batch, variant
+
     def _step(self, batchsize, train_step, raytracing_args, num_variants):
         """One gradient step on a frame batch (and, for an ensemble, a
         variant) drawn from the generator."""
-        batch = train_step.args[0].sample(batchsize, self.generator)
-        self.variant = (int(torch.randint(num_variants, (),
-                                          generator=self.generator))
-                        if num_variants > 1 else 0)
+        batch, self.variant = self._draw(batchsize, train_step, num_variants)
         self.loss, self.state, _ = train_step(
             self.state, raytracing_args, indices=batch, variant=self.variant)
+
+    def _run_scan(self, batchsize, train_step, rt_list, scan_chunk, verbose,
+                  num_variants):
+        """The chunked loop (reference optimizer.py:202-256).
+
+        Per-step LogFns (log_period == 1, the LogFn default) stay out of
+        the boundary alignment: a period of 1 would clamp every chunk to
+        one step. The chunk returns every step's loss, so they are
+        replayed on the host from the chunk's losses and variants, and see
+        end-of-chunk params; callbacks that read params should use
+        log_period > 1."""
+        per_step_fns = [f for f in self.log_fns
+                        if getattr(f, 'log_period', None) == 1]
+        chunk_fns = [f for f in self.log_fns if f not in per_step_fns]
+        periods = [f.log_period for f in chunk_fns
+                   if getattr(f, 'log_period', 0) > 0]
+        if self.checkpoint_dir:     # the save gate is moot without one
+            periods.append(self.save_period)
+        periods = [p for p in periods if p > 0]
+
+        def next_boundary(s):
+            bounds = [(s // p + 1) * p for p in periods]
+            return min(bounds) if bounds else self.final_step - 1
+
+        try:
+            with _GracefulShutdown() as shutdown:
+                self._scan_loop(shutdown, batchsize, train_step, rt_list,
+                                scan_chunk, num_variants, next_boundary,
+                                verbose, per_step_fns, chunk_fns)
+        except KeyboardInterrupt:
+            return
+
+    def _upload_indices(self, batches, device):
+        """A chunk's (chunk, batchsize) frame indices on `device`: one
+        copy, from pinned memory on the card, that does not block."""
+        idx = torch.stack(batches).to(torch.int64)
+        if device.type != 'cuda':
+            return idx.to(device)
+        return idx.pin_memory().to(device, non_blocking=True)
+
+    def _chunk(self, train_step, rt_list, indices, variants):
+        """One chunk: a gradient step of `train_step` on each row of the
+        device tensor `indices` and variant of `variants` (host ints).
+        Returns the steps' losses (chunk,) on the device; nothing is read
+        back, copied from the host or synchronised."""
+        losses = []
+        for i, variant in enumerate(variants):
+            loss, self.state, _ = train_step(self.state, rt_list, indices[i],
+                                             variant=variant)
+            losses.append(loss)
+        return torch.stack(losses)
+
+    def _scan_loop(self, shutdown, batchsize, train_step, rt_list, scan_chunk,
+                   num_variants, next_boundary, verbose, per_step_fns,
+                   chunk_fns):
+        """Chunks up to the last step (reference optimizer.py:258-315)."""
+        device = train_step.args[0].device_args[0].device
+        report = max(1, self.num_iters // 10)
+        step = self.init_step - 1
+        while step < self.final_step - 1:
+            chunk = min(scan_chunk, self.final_step - 1 - step,
+                        next_boundary(step) - step)
+            draws = [self._draw(batchsize, train_step, num_variants)
+                     for _ in range(chunk)]
+            indices = self._upload_indices([b for b, _ in draws], device)
+            variants = [v for _, v in draws]
+            losses = self._chunk(train_step, rt_list, indices, variants)
+            step += chunk
+            self.step, self.loss, self.variant = step, losses[-1], \
+                variants[-1]
+            if not torch.isfinite(self.loss).all():
+                warnings.warn(f'non-finite loss at step {self.step}; '
+                              f'stopping (the last checkpoint is '
+                              f'recoverable)')
+                return
+            if per_step_fns:
+                for i, loss in enumerate(losses.cpu()):
+                    self.step, self.loss = step - chunk + i + 1, loss
+                    self.variant = variants[i]
+                    for f in per_step_fns:
+                        f(self)
+                self.step, self.loss = step, losses[-1]
+            for f in chunk_fns:
+                f(self)
+            self.save_checkpoint()
+            if shutdown.requested:
+                self.save_checkpoint(force=True)
+                return
+            if verbose and (step - self.init_step + 1) // report > \
+                    (step - chunk - self.init_step + 1) // report:
+                print(f'iteration {step}: loss {float(self.loss):.6g}',
+                      flush=True)
 
 
 class TrainStep:
     """Composable container of (dtype, args, grad/test fns, scale), one
-    entry per loss (reference optimization.py:145-268)."""
+    entry per loss (reference optimization.py:145-268). scan_meta: one
+    dict per loss of the make_scan_step keyword arguments of its loss
+    (make_composed_scan_step takes the list); None keeps the step on the
+    per-step loop of Optimizer.run."""
 
-    def __init__(self, dtype, args, grad_fn, test_fn, scale):
+    def __init__(self, dtype, args, grad_fn, test_fn, scale,
+                 scan_meta=None):
         self.dtype = _as_list(dtype)
         self.args = _as_list(args)
         self.grad_fn = _as_list(grad_fn)
         self.test_fn = _as_list(test_fn)
         self.scale = _as_list(scale)
+        self.scan_metas = None if scan_meta is None else _as_list(scan_meta)
         if any(arg.t_units != units.hr for arg in self.args):
             raise ValueError('only hr units supported')
         self.num_losses = len(self.dtype)
@@ -236,22 +379,36 @@ class TrainStep:
             fns = self.test_fn
 
         total_loss, total_images = 0.0, 0.0
-        idx = torch.as_tensor(np.asarray(indices), dtype=torch.int64)
+        # a tensor already on the device (a chunk's row) is used as it is
+        idx = indices if isinstance(indices, torch.Tensor) \
+            else torch.as_tensor(np.asarray(indices))
         for rt in rt_list:
             for i in range(self.num_losses):
                 args = self.args[i].device_args
                 loss, state, images = fns[i](
-                    state, *args, idx.to(args[0].device), rt, self.scale[i])
+                    state, *args, idx.to(args[0].device, torch.int64), rt,
+                    self.scale[i])
                 # accumulated on the device: no synchronise per step
                 total_loss = total_loss + loss / len(rt_list)
                 total_images = total_images + images / len(rt_list)
         return total_loss, state, total_images
 
+    @property
+    def scan_meta(self):
+        """The make_scan_step keyword arguments of a single scannable
+        loss; None for a composed or an unscannable step."""
+        if self.scan_metas is not None and len(self.scan_metas) == 1:
+            return self.scan_metas[0]
+        return None
+
     def __add__(self, other):
+        metas = (self.scan_metas + other.scan_metas
+                 if self.scan_metas is not None
+                 and other.scan_metas is not None else None)
         return TrainStep(self.dtype + other.dtype, self.args + other.args,
                          self.grad_fn + other.grad_fn,
                          self.test_fn + other.test_fn,
-                         self.scale + other.scale)
+                         self.scale + other.scale, scan_meta=metas)
 
     @classmethod
     def image(cls, t_frames, target, predictor, sigma=1.0, offset=0.0,
@@ -271,7 +428,10 @@ class TrainStep:
         grad_fn, test_fn = step_lib.make_step_fns(
             predictor, kind='image', dtype=dtype, fused=fused,
             tv_scale=tv_scale, tv_fov=tv_fov, tv_resolution=tv_resolution)
-        return cls(dtype, args, grad_fn, test_fn, scale)
+        meta = dict(predictor=predictor, kind='image', dtype=dtype,
+                    fused=fused, tv_scale=tv_scale, tv_fov=tv_fov,
+                    tv_resolution=tv_resolution)
+        return cls(dtype, args, grad_fn, test_fn, scale, scan_meta=meta)
 
     @classmethod
     def eht(cls, t_frames, obs, image_fov, image_size, predictor,
@@ -301,7 +461,9 @@ class TrainStep:
                                    device=device)
         grad_fn, test_fn = step_lib.make_step_fns(predictor, kind='eht',
                                                   dtype=dtype, fused=fused)
-        return cls(dtype, args, grad_fn, test_fn, scale)
+        meta = dict(predictor=predictor, kind='eht', dtype=dtype,
+                    fused=fused)
+        return cls(dtype, args, grad_fn, test_fn, scale, scan_meta=meta)
 
     @property
     def t_units(self):

@@ -1,7 +1,7 @@
 """Ray constants, domain compaction, image loss and the gradient step.
 
 PyTorch counterpart of `bhnerf_tpu/train/step.py` without its mesh
-sharding and scan-chunked steps:
+sharding:
 
 * `RayTracingArgs` freezes the geodesic constants into float32 tensors on
   the training device; `t_geos - t_injection` is subtracted in float64 on
@@ -24,7 +24,12 @@ sharding and scan-chunked steps:
   operator split into real and imaginary parts, whose products run in
   IEEE float32 whatever the caller's TF32 setting;
 * `make_step_fns` returns the grad/test steps over full device-resident
-  frame tensors plus explicit frame indices.
+  frame tensors plus explicit frame indices;
+* `make_scan_step` and `make_composed_scan_step` run a chunk of gradient
+  steps on frame indices drawn on the host and uploaded once, without a
+  synchronisation inside the chunk; for an ensemble the host picks each
+  step's variant from the list. `stack_ensemble` stacks an ensemble as
+  the reference does, and raises as it does when the variants differ.
 """
 from __future__ import annotations
 
@@ -342,6 +347,70 @@ def compact_ensemble_args(rt_list, predictor, **kwargs):
                                               pad_groups=ng, **kwargs)
                  for c, rt in zip(built, rt_list)]
     return built
+
+
+# the fields of the ray-constant dataclasses that stack along a variant
+# axis (the reference's pytree leaves, step.py:50-52, 135-136); the others
+# must agree across an ensemble
+_LEAVES = {
+    RayTracingArgs: ('coords', 'Omega', 'J', 'g', 'dtau', 'Sigma',
+                     't_geos_rel', 't_injection'),
+    CompactRayArgs: ('coords', 'Omega', 'weights', 't_geos_rel', 'pixel_ids',
+                     't_injection', 'red_gather', 'red_weights',
+                     'red_group_ids'),
+}
+
+
+def check_ensemble(rt_list):
+    """Raises the ValueError of stack_ensemble when the variants of
+    `rt_list` cannot be stacked, without stacking them; returns the
+    stackable fields' names."""
+    first = rt_list[0]
+    leaves = []
+    try:
+        if any(type(rt) is not type(first) for rt in rt_list):
+            raise ValueError('variants of different classes')
+        for f in dataclasses.fields(first):
+            xs = [getattr(rt, f.name) for rt in rt_list]
+            if f.name not in _LEAVES[type(first)] or \
+                    all(x is None for x in xs):
+                if any(x != xs[0] for x in xs):
+                    raise ValueError(f'{f.name} differs across variants')
+                continue
+            if any(x is None for x in xs):
+                raise ValueError(f'{f.name} is None in some variants')
+            if all(isinstance(x, torch.Tensor) for x in xs) and \
+                    len({(x.shape, x.dtype, x.device) for x in xs}) > 1:
+                raise ValueError(
+                    f'{f.name} shapes {[tuple(x.shape) for x in xs]}')
+            leaves.append(f.name)
+    except (ValueError, TypeError, RuntimeError) as e:
+        raise ValueError(
+            f'ensemble variants are not uniformly shaped ({e}); build '
+            f'compact ensembles with compact_ensemble_args') from e
+    return leaves
+
+
+def stack_ensemble(rt_list):
+    """Stack identically shaped ray constants (dense or compact) into one
+    object of the same class with a leading variant axis on every leaf
+    (reference step.py:440-462). A single variant comes back as it is.
+    Raises ValueError if the variants' shapes or static fields differ:
+    build compact ensembles with compact_ensemble_args. The port's chunks
+    need no stack (the host picks each step's variant from the list); the
+    Optimizer only checks that one could be made (check_ensemble)."""
+    rt_list = list(rt_list) if isinstance(rt_list, (list, tuple)) \
+        else [rt_list]
+    if len(rt_list) == 1:
+        return rt_list[0]
+    stacked = {}
+    for name in check_ensemble(rt_list):
+        xs = [getattr(rt, name) for rt in rt_list]
+        # python scalars (a scalar J) stack into a host tensor
+        stacked[name] = torch.stack(xs) if all(
+            isinstance(x, torch.Tensor) for x in xs) else torch.as_tensor(
+                np.asarray(xs, np.float64))
+    return dataclasses.replace(rt_list[0], **stacked)
 
 
 # ---------------------------------------------------------------------------
@@ -813,3 +882,94 @@ def make_step_fns(predictor, kind='image', dtype='full', fused=False,
         return loss, state, images
 
     return grad_step, test_step
+
+
+def _check_chunk(indices, variants, batchsize, chunk, rt_list):
+    """Shapes only: reading the tensor's values would synchronise."""
+    if tuple(indices.shape) != (chunk, batchsize):
+        raise ValueError(f'indices of shape {tuple(indices.shape)}; the chunk '
+                         f'takes ({chunk}, {batchsize})')
+    if len(variants) != chunk:
+        raise ValueError(f'{len(variants)} variants for a chunk of {chunk}')
+    if any(not 0 <= v < len(rt_list) for v in variants):
+        raise ValueError(f'variant numbers {sorted(set(variants))} over '
+                         f'{len(rt_list)} set(s) of ray constants')
+
+
+def _chunk(state, grad_steps, scales, loss_args, indices, variants, rt,
+           batchsize, chunk):
+    """`chunk` gradient steps; step i applies each loss's gradient in turn
+    on frames indices[i] and variant variants[i] of `rt` (one set of ray
+    constants or a list of variants). Returns (state, the steps' summed
+    losses (chunk,) on the device)."""
+    rt_list = list(rt) if isinstance(rt, (list, tuple)) else [rt]
+    _check_chunk(indices, variants, batchsize, chunk, rt_list)
+    losses = []
+    for i, v in enumerate(variants):
+        total = 0.0
+        for grad_step, args, scale in zip(grad_steps, loss_args, scales):
+            loss, state, _ = grad_step(state, *args, indices[i], rt_list[v],
+                                       scale)
+            total = total + loss
+        losses.append(total)
+    return state, torch.stack(losses)
+
+
+def make_scan_step(predictor, kind='image', dtype='full', fused=False,
+                   tv_scale=0.0, tv_fov=None, tv_resolution=32, batchsize=6,
+                   chunk=100):
+    """`chunk` gradient steps of one loss in one call (reference
+    step.py:1064-1126, a lax.scan there). Returns
+    scan_steps(state, target, sigma, third, t_frames, indices, variants,
+    rt, scale) -> (state, losses (chunk,) on the device).
+
+    The frame batches are drawn on the host: `indices` is a (chunk,
+    batchsize) int64 tensor already on the device, `variants` the chunk's
+    variant numbers as host ints, and `rt` one set of ray constants (all
+    variants 0) or an ensemble's list of them, of which step i trains on
+    rt[variants[i]]. Each step is make_step_fns' grad_step, so a chunk
+    gives the per-step loop's losses for the same draws. Inside the chunk
+    nothing is read back, copied from the host or synchronised."""
+    grad_step, _ = make_step_fns(predictor, kind=kind, dtype=dtype,
+                                 fused=fused, tv_scale=tv_scale,
+                                 tv_fov=tv_fov, tv_resolution=tv_resolution)
+
+    def scan_steps(state, target, sigma, third, t_frames, indices, variants,
+                   rt, scale):
+        return _chunk(state, [grad_step], [scale],
+                      [(target, sigma, third, t_frames)], indices, variants,
+                      rt, batchsize, chunk)
+
+    return scan_steps
+
+
+def make_composed_scan_step(batchsize=6, chunk=100, metas=(), scales=()):
+    """Chunked training of a `+`-composed TrainStep (reference
+    step.py:1128-1207). metas: one dict per loss, the keyword arguments
+    that loss would pass to make_scan_step (a TrainStep's scan_metas). As
+    in the per-step loop, each step draws one frame batch and variant
+    shared by every loss and applies each loss's gradient in composition
+    order; the step's loss is their sum. Returns scan_steps(state,
+    *loss_args, indices, variants, rt) -> (state, losses (chunk,)),
+    loss_args the (target, sigma, third, t_frames) of each loss in order,
+    and the rest as make_scan_step takes them."""
+    metas = [dict(m) for m in metas]
+    if len(scales) != len(metas):
+        raise ValueError('need one scale per loss')
+    grad_steps = [make_step_fns(
+        m['predictor'], kind=m.get('kind', 'image'), dtype=m['dtype'],
+        fused=m.get('fused', False), tv_scale=m.get('tv_scale', 0.0),
+        tv_fov=m.get('tv_fov'), tv_resolution=m.get('tv_resolution', 32))[0]
+        for m in metas]
+
+    def scan_steps(state, *args):
+        *loss_args, indices, variants, rt = args
+        if len(loss_args) != 4 * len(grad_steps):
+            raise ValueError(f'{len(loss_args)} frame tensors for '
+                             f'{len(grad_steps)} losses; each takes 4')
+        return _chunk(state, grad_steps, scales,
+                      [loss_args[4 * k:4 * k + 4]
+                       for k in range(len(grad_steps))],
+                      indices, variants, rt, batchsize, chunk)
+
+    return scan_steps

@@ -2,7 +2,8 @@
 
 PyTorch counterpart of a subset of `bhnerf_tpu/utils.py`: `mse`, `psnr`,
 `normalize`, the `Grid3D` container, `linspace_grid`, `gaussian_field`,
-`rotation_matrix`, `world_to_image_coords` and `expand_dims`. The rest of
+`rotation_matrix`, `world_to_image_coords`, `expand_dims` and
+`intensity_to_nchw` (numpy and matplotlib, for tensorboard). The rest of
 that module (random fields, FFT helpers, `expand_3d`) is not ported yet.
 """
 from __future__ import annotations
@@ -145,3 +146,16 @@ def expand_dims(x, ndim, axis=0):
     for _ in range(ndim - x.ndim):
         x = x.unsqueeze(min(axis, x.ndim) if axis >= 0 else axis)
     return x
+
+
+def intensity_to_nchw(intensity, cmap='viridis', gamma=0.5):
+    """Grayscale volume -> NCHW image stack for tensorboard (reference
+    utils.py:243-251): the volume normalised to [0, 1], raised to `gamma`
+    and coloured by `cmap`; one image per slice of the last axis.
+    matplotlib is imported here, not with the module."""
+    import matplotlib.pyplot as plt
+    cm = plt.get_cmap(cmap)
+    intensity = np.asarray(intensity)
+    lo, hi = np.min(intensity), np.max(intensity)
+    norm = ((intensity - lo) / max(hi - lo, 1e-30)) ** gamma
+    return np.moveaxis(cm(norm)[..., :3], (0, 1, 2, 3), (3, 2, 0, 1))

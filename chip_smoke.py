@@ -2,7 +2,8 @@
 their plain versions at the shapes of the training paths, train a few
 steps of the Tutorial-3 image fit and of the ALMA polarized-lightcurve fit
 at full width, recover a synthetic hotspot from its movie in 1000 steps
-and from an ngEHT observation in 5000, on one CUDA device.
+(per step and in chunks) and from an ngEHT observation in 5000, and run
+the ALMA fit script's sweep, on one CUDA device.
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 nvcc:
@@ -37,7 +38,10 @@ Phases (any failure raises and exits non-zero):
      a test step over the ensemble, the polarized 'full' image loss
      through the 'native' reduce against the segment sum and 20 steps of
      it in each layout, the cost of the aux-image reduce, and a profile
-     of 10 ALMA steps per layout;
+     of 10 ALMA steps per layout; then ALMA_SCAN_STEPS 'lc' steps on the
+     'gather' ensemble in chunks of ALMA_SCAN_CHUNK (Optimizer.run
+     scan_chunk) against the per-step loop from the same seed, whose
+     loss series they must give to float32 round-off;
   8. the recovery fit of bench_recovery.py on the Tutorial-3 geometry's
      table: a hotspot at 1.1 r_isco rendered into a 64-frame movie by
      emission.image_plane_dynamics on the card (and the device memory a
@@ -48,9 +52,23 @@ Phases (any failure raises and exits non-zero):
      RECOVERY_MAX_LC_ERR_PCT of lc_err_pct, with one forward and one
      backward launch per step; the float32 fit checkpoints every 500
      steps, and restore_params, a resumed Optimizer and keep pruning are
-     checked against it; both kernels against their plain versions at the
+     checked against it; the bfloat16 fit once more in chunks of
+     RECOVERY_SCAN_CHUNK, its first chunk under
+     torch.cuda.set_sync_debug_mode('error'), held to the same bar and
+     launch counts, with steps/s and device idle share beside the
+     per-step fit's; both kernels against their plain versions at the
      fit's sample count in float32 and in bfloat16;
-  9. the EHT visibility path (bench_recovery.py --eht): the same hotspot's
+  9. the fit script's sweep (bhnerf_tpu_torch.scripts.
+     fit_alma_lp_apr11_sgra_flare.run_sweep) on a synthetic observation
+     at the configuration's full width: FIT_INCS x one seed of FIT_STEPS
+     chunked steps with the four LogFns recorded by MemoryWriter; both
+     kernels against their plain versions in float32 on each
+     inclination's compacted table, at the training batch and at the
+     20-frame batch of the datafit renders; alma.chi2_df over the
+     inclinations at step FIT_STEPS (finite, one value per cell); then
+     one run resumed to FIT_RESUME_STEPS (it must continue from
+     FIT_STEPS);
+  10. the EHT visibility path (bench_recovery.py --eht): the same hotspot's
      movie over the ngEHT window 4.0-15.5 UT rendered on the card and
      observed by the ngEHT array with thermal noise (observe_same), then
      TrainStep.eht('vis', dense) for EHT_STEPS bfloat16 steps at npix 64,
@@ -61,9 +79,9 @@ Phases (any failure raises and exits non-zero):
      bfloat16, the dense and the factored operator against each other on
      one batch, and EHT_OPERATOR_STEPS float32 steps of each with a
      profile.
-The three lines before the last are the JSON recovery and EHT summaries
-and the JSON kernel summary; the last line is {"ok": true, "device":
-{...}}.
+The four lines before the last are the JSON recovery, chunked-loop and
+EHT summaries and the JSON kernel summary; the last line is {"ok": true,
+"device": {...}}.
 """
 import dataclasses
 import json
@@ -106,6 +124,21 @@ RECOVERY_SAVE_PERIOD = 500
 # zeros scores 33.1 dB against this hotspot
 RECOVERY_MIN_PSNR = 55.0
 RECOVERY_MAX_LC_ERR_PCT = 0.5
+# the chunked loop of bench_recovery.py:143-168 (scan_chunk 500), and of
+# the ALMA 'lc' fit on the 4-variant ensemble (ALMA_SCAN_STEPS steps in
+# chunks of ALMA_SCAN_CHUNK against the per-step loop from the same seed)
+RECOVERY_SCAN_CHUNK = 500
+ALMA_SCAN_STEPS = 200
+ALMA_SCAN_CHUNK = 100
+# the fit script's sweep (scripts/fit_alma_lp_apr11_sgra_flare.yaml at its
+# full width) on a synthetic observation, cut to FIT_INCS x one seed of
+# FIT_STEPS steps in chunks, logs and checkpoints of FIT_PERIOD steps,
+# then one run resumed to FIT_RESUME_STEPS
+FIT_INCS = (40.0, 60.0)
+FIT_SEED = 4
+FIT_STEPS = 500
+FIT_PERIOD = 250
+FIT_RESUME_STEPS = 750
 # the EHT fit of bench_recovery.py --eht (:76-133, 144-183): the recovery
 # hotspot observed by the ngEHT array in NT scans of EHT_TINT seconds over
 # 4.0-15.5 UT, fitted to its complex visibilities
@@ -224,9 +257,9 @@ def host_precompute(device):
     return geos, predictor, crt, t_frames
 
 
-def kernel_inputs(predictor, crt, t_frames, rng, device):
+def kernel_inputs(predictor, crt, t_frames, rng, device, batch=BATCH):
     """The arguments render_fwd takes on the training path for a batch of
-    BATCH frames drawn from `rng` over the compact samples `crt`, with
+    `batch` frames drawn from `rng` over the compact samples `crt`, with
     seeded weights whose head bias is lifted so that emissions and
     gradients are macroscopic."""
     import torch
@@ -239,7 +272,8 @@ def kernel_inputs(predictor, crt, t_frames, rng, device):
     biases = [b.detach() for b in fused.pack_params(params)[1]]
     biases[-1] = biases[-1] + 8.0
     t_frames_M = crt.frame_times_M(torch.as_tensor(
-        t_frames[rng.choice(NT, BATCH, replace=False)], device=device))
+        t_frames[rng.choice(len(t_frames), batch, replace=False)],
+        device=device))
     coords, omega, tg, smask, _ = fused._flatten_sample_args(
         crt.coords, crt.Omega, crt.t_geos_rel, 1.0, crt.coords.shape[1])
     t_eff = (t_frames_M.reshape(-1, 1) - crt.t_injection).contiguous()
@@ -468,9 +502,11 @@ PROFILE_GROUPS = (
     ('per-pixel reduce', ('index', 'gather', 'scatter')))
 
 
-def profile_path(label, opt, train_step, crt, step_ms, steps=10):
+def profile_path(label, opt, train_step, crt, step_ms, steps=10,
+                 scan_chunk=0):
     """torch.profiler (device events) over `steps` more steps of a
-    training path, after two warm-up steps that the profiler drops: the
+    training path, after two warm-up steps that the profiler drops (with
+    scan_chunk: one chunk of `steps` steps, after a warm-up chunk): the
     device's busy share of a step and each kernel's share of the device
     time. The profiler slows the host, so the busy share is also given
     against the unprofiled step time `step_ms`. Returns the device's busy
@@ -479,21 +515,33 @@ def profile_path(label, opt, train_step, crt, step_ms, steps=10):
     from torch.profiler import ProfilerActivity, profile, schedule
     from bhnerf_tpu_torch.train.optimizer import LogFn
 
-    warmup = 2
-    opt.num_iters = warmup + steps
-    stamps = []
-
-    def tick(o):
-        float(o.loss)                       # one step per synchronise
-        stamps.append(time.perf_counter())
-        prof.step()
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=warmup, active=steps,
-                                   repeat=1)) as prof:
-        opt.run(BATCH, train_step, crt, log_fns=[LogFn(tick)], verbose=False)
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    if scan_chunk:
+        opt.num_iters = steps
+        opt.run(BATCH, train_step, crt, verbose=False, scan_chunk=steps)
         torch.cuda.synchronize()
-    wall_ms = 1e3 * (stamps[-1] - stamps[warmup - 1]) / steps
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            opt.run(BATCH, train_step, crt, verbose=False, scan_chunk=steps)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    else:
+        warmup = 2
+        opt.num_iters = warmup + steps
+        stamps = []
+
+        def tick(o):
+            float(o.loss)                   # one step per synchronise
+            stamps.append(time.perf_counter())
+            prof.step()
+
+        with profile(activities=activities,
+                     schedule=schedule(wait=0, warmup=warmup, active=steps,
+                                       repeat=1)) as prof:
+            opt.run(BATCH, train_step, crt, log_fns=[LogFn(tick)],
+                    verbose=False)
+            torch.cuda.synchronize()
+        wall_ms = 1e3 * (stamps[-1] - stamps[warmup - 1]) / steps
     # device rows only (host ops carry the time of what they launch); the
     # Adam and profiler-step ranges overlap the kernels inside them
     rows = [(e.key, e.self_device_time_total / 1e3 / steps)
@@ -741,6 +789,66 @@ def alma_train(label, train_step, crts, predictor, device, steps):
     return opt, 1e3 / steps_per_s, launches
 
 
+def alma_chunked(train_step, crts, predictor, device):
+    """ALMA_SCAN_STEPS steps of the 'lc' fit over the ensemble `crts` in
+    chunks of ALMA_SCAN_CHUNK against the per-step loop from the same seed
+    (the same batches and variants): the loss series must agree to float32
+    round-off. Returns the chunked run's launches and its summary."""
+    import torch
+    from bhnerf_tpu_torch.ops import fused
+    from bhnerf_tpu_torch.train.optimizer import LogFn, Optimizer
+
+    runs = {}
+    for scan_chunk in (0, ALMA_SCAN_CHUNK):
+        opt = Optimizer({'num_iters': ALMA_SCAN_STEPS, 'lr_init': 1e-3,
+                         'lr_final': 1e-4, 'lr_inject': 1e-3, 'seed': 0},
+                        predictor, crts, device=device)
+        losses, variants = [], []
+
+        def record(o):
+            # a device tensor in the per-step loop (no synchronise), a
+            # host one replayed from the chunk in the chunked loop
+            losses.append(o.loss)
+            variants.append(o.variant)
+
+        fused.render_fwd.launches = 0
+        fused.render_bwd.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.run(BATCH, train_step, crts, log_fns=[LogFn(record)],
+                verbose=False, scan_chunk=scan_chunk)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        runs[scan_chunk] = dict(
+            losses=np.array([float(l) for l in losses]), variants=variants,
+            launches=(fused.render_fwd.launches, fused.render_bwd.launches),
+            steps_per_s=ALMA_SCAN_STEPS / wall_s)
+    per_step, chunked = runs[0], runs[ALMA_SCAN_CHUNK]
+    rel = float(np.max(np.abs(chunked['losses'] - per_step['losses'])
+                       / np.abs(per_step['losses'])))
+    log(f"ALMA 'lc' fit, gather layout, {ALMA_SCAN_STEPS} steps in chunks of "
+        f'{ALMA_SCAN_CHUNK} against the per-step loop from the same seed: '
+        f'the same variants {chunked["variants"] == per_step["variants"]}, '
+        f'losses {per_step["losses"][0]:.6g} -> {per_step["losses"][-1]:.6g}'
+        f', largest relative difference {rel:.3e} (rtol 1e-5; bitwise equal '
+        f'{bool(np.array_equal(chunked["losses"], per_step["losses"]))}); '
+        f'launches fwd {chunked["launches"][0]}, bwd '
+        f'{chunked["launches"][1]}; {chunked["steps_per_s"]:.2f} against '
+        f'{per_step["steps_per_s"]:.2f} steps/s')
+    if chunked['launches'] != (ALMA_SCAN_STEPS, ALMA_SCAN_STEPS):
+        raise RuntimeError(f'the chunked ALMA run launched '
+                           f'{chunked["launches"]}')
+    if chunked['variants'] != per_step['variants'] or rel > 1e-5 \
+            or len(chunked['losses']) != ALMA_SCAN_STEPS \
+            or not np.isfinite(chunked['losses']).all():
+        raise RuntimeError('the chunked ALMA run differs from the per-step '
+                           'run')
+    return chunked['launches'], {
+        'steps': ALMA_SCAN_STEPS, 'scan_chunk': ALMA_SCAN_CHUNK,
+        'max_rel_loss_diff': rel, 'steps_per_s': chunked['steps_per_s'],
+        'per_step_steps_per_s': per_step['steps_per_s']}
+
+
 def alma_native_reduce_check(predictor, crt, t_frames, movie, device):
     """The polarized 'full' image loss through the 'native' reduce,
     forward and backward on the card, against the plain segment sum over
@@ -782,7 +890,8 @@ def alma_native_reduce_check(predictor, crt, t_frames, movie, device):
 
 def alma_phase(kernels, device):
     """The ALMA polarized-lightcurve fit at full width through the port's
-    entry points; fills the ALMA keys of the JSON kernel entries."""
+    entry points; fills the ALMA keys of the JSON kernel entries and
+    returns the summary of the chunked 'lc' run."""
     import torch
     from bhnerf_tpu_torch import units
     from bhnerf_tpu_torch.train import step
@@ -805,6 +914,8 @@ def alma_phase(kernels, device):
                                   crts[layout], predictor, device, STEPS)
         launches = [a + b for a, b in zip(launches, runs[layout][2])]
 
+    chunked_launches, chunked = alma_chunked(lc_step, crts['gather'],
+                                             predictor, device)
     alma_native_reduce_check(predictor, crts['native'][0], t_frames, movie,
                              device)
     full_step = TrainStep.image(
@@ -842,6 +953,9 @@ def alma_phase(kernels, device):
             'alma_gather_bound_ms': gather[kind + '_bound'][0]})
         if kind == 'fwd':
             entry['alma_stash_ms'] = native['ms']['fwd_stash']
+    for entry, count in zip(kernels, chunked_launches):
+        entry.setdefault('scan', {})['alma_lc_chunked'] = count
+    return chunked
 
 
 def recovery_hotspot():
@@ -915,11 +1029,12 @@ def recovery_target(geos, device):
 
 
 def recovery_kernel_checks(predictor, crt, t_frames, device,
-                           label='recovery'):
+                           label='recovery', dtypes=('float32', 'bfloat16'),
+                           batch=BATCH):
     """Both kernels against their plain versions at the sample count of
-    `crt` and a 6-frame batch drawn from `t_frames`, in each compute dtype
-    the fits run,
-    with their times and bounds. float32: emission atol 2e-6 / rtol 1e-4,
+    `crt` and a batch of `batch` frames drawn from `t_frames`, in each
+    compute dtype of `dtypes` (those the fits run), with their times and
+    bounds. float32: emission atol 2e-6 / rtol 1e-4,
     F 1e-5, gradients 5e-5 normalised. bfloat16, against the plain
     version in bfloat16: emission atol 2e-3 / rtol 2e-2, F one bf16 step
     (2^-7), gradients 1e-2 normalised (the card tests' tolerances); and
@@ -930,10 +1045,10 @@ def recovery_kernel_checks(predictor, crt, t_frames, device,
 
     n = crt.coords.shape[1]
     common = kernel_inputs(predictor, crt, t_frames, np.random.default_rng(4),
-                           device)
+                           device, batch)
     _, _, omega, _, _, weights, biases, cfg, _, deg = common
     n_params = sum(w.numel() + b.numel() for w, b in zip(weights, biases))
-    target = torch.as_tensor(np.random.default_rng(5).random((BATCH, n)),
+    target = torch.as_tensor(np.random.default_rng(5).random((batch, n)),
                              dtype=torch.float32, device=device)
     em32, f32 = fused.render_fwd_plain(*common, 'float32', stash=True)
     g32 = (2.0 * (em32 - target)).contiguous()
@@ -942,7 +1057,8 @@ def recovery_kernel_checks(predictor, crt, t_frames, device,
     tols = {'float32': (dict(atol=2e-6, rtol=1e-4), 1e-5, 5e-5),
             'bfloat16': (dict(atol=2e-3, rtol=2e-2), 2.0 ** -7, 1e-2)}
     out = {}
-    for dtype, (em_tol, f_tol, g_tol) in tols.items():
+    for dtype in dtypes:
+        em_tol, f_tol, g_tol = tols[dtype]
         em_k, f_k = fused.render_fwd(*common, dtype, stash=True)
         em_p, f_p = fused.render_fwd_plain(*common, dtype, stash=True)
         g_em = (2.0 * (em_p - target)).contiguous()
@@ -953,7 +1069,8 @@ def recovery_kernel_checks(predictor, crt, t_frames, device,
         fwd_err = float((em_k - em_p).abs().max())
         f_err = float((f_k - f_p).abs().max())
         bwd_err, norm_err = grad_errors(gp, gk)
-        line = (f'{label} N = {n}, {dtype}: emission {fwd_err:.3e} (atol '
+        line = (f'{label} N = {n}, {batch} frames, {dtype}: emission '
+                f'{fwd_err:.3e} (atol '
                 f'{em_tol["atol"]:g}, rtol {em_tol["rtol"]:g}), F '
                 f'{f_err:.3e} (atol {f_tol:.3g}), gradients '
                 f'{norm_err:.3e} normalised (atol {g_tol:.0e})')
@@ -981,26 +1098,59 @@ def recovery_kernel_checks(predictor, crt, t_frames, device,
                 ('bwd', bwd_err, lambda: fused.render_bwd(g_em, *bwd_args),
                  lambda: fused.render_bwd_plain(g_em, *bwd_args))):
             ms, plain_ms = cuda_ms(run), cuda_ms(plain)
-            b_ms, b_by, _ = bound(kind, cfg, f_p.shape[0], BATCH, n,
+            b_ms, b_by, _ = bound(kind, cfg, f_p.shape[0], batch, n,
                                   n_params, dtype)
             out[dtype][kind] = {'max_abs_err': err, 'ms': ms,
                                 'plain_ms': plain_ms, 'bound_ms': b_ms,
                                 'bound_by': b_by}
-            log(f'{label} N = {n}, {dtype} {kind}: kernel {ms:.3f} ms, '
+            log(f'{label} N = {n}, {batch} frames, {dtype} {kind}: kernel '
+                f'{ms:.3f} ms, '
                 f'plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), '
                 f'kernel at {100 * b_ms / ms:.1f}% of it')
     return out
 
 
+class strict_first_chunk:
+    """Within this scope the first chunk that Optimizer.run runs (its
+    Optimizer._chunk) runs under torch.cuda.set_sync_debug_mode('error'):
+    any call inside it that synchronises with the card raises. `ran`
+    counts the chunks that did."""
+
+    def __enter__(self):
+        import torch
+        from bhnerf_tpu_torch.train.optimizer import Optimizer
+        self.ran, self._chunk = 0, Optimizer._chunk
+        chunk = self._chunk
+
+        def strict(opt, *args):
+            if self.ran:
+                return chunk(opt, *args)
+            self.ran += 1
+            torch.cuda.set_sync_debug_mode('error')
+            try:
+                return chunk(opt, *args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+        Optimizer._chunk = strict
+        return self
+
+    def __exit__(self, *exc):
+        from bhnerf_tpu_torch.train.optimizer import Optimizer
+        Optimizer._chunk = self._chunk
+        return False
+
+
 def recovery_fit(compute_dtype, geos, hotspot, t_frames, t_injection, movie,
-                 device, checkpoint_dir=''):
+                 device, checkpoint_dir='', scan_chunk=0):
     """The recovery fit of bench_recovery.py:121-183 through the port's
     entry points: NeRFPredictor(scale 8, rmin 0, rmax 8, z_width 2)
     compacted in the 'gather' layout, TrainStep.image(dtype='full',
     fused=True), Adam at lr 1e-3 -> 1e-5 for RECOVERY_STEPS steps of batch
-    BATCH in the per-step loop; then the volume PSNR on a RECOVERY_RES^3
-    grid and the lightcurve error of the whole movie. Returns (result,
-    optimizer, train_step, crt, launches)."""
+    BATCH in the per-step loop, or with scan_chunk in chunks of that many
+    steps, the first of them under set_sync_debug_mode('error'); then the
+    volume PSNR on a RECOVERY_RES^3 grid and the lightcurve error of the
+    whole movie. Returns (result, optimizer, train_step, crt, launches)."""
     import torch
     from bhnerf_tpu_torch import utils
     from bhnerf_tpu_torch.models.fields import NeRFPredictor, sample_3d_grid
@@ -1024,11 +1174,15 @@ def recovery_fit(compute_dtype, geos, hotspot, t_frames, t_injection, movie,
     fused.render_fwd.launches = 0
     fused.render_bwd.launches = 0
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    opt.run(BATCH, train_step, crt, verbose=False)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
+    with strict_first_chunk() as strict:
+        t0 = time.perf_counter()
+        opt.run(BATCH, train_step, crt, verbose=False, scan_chunk=scan_chunk)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
     launches = (fused.render_fwd.launches, fused.render_bwd.launches)
+    if scan_chunk and strict.ran != 1:
+        raise RuntimeError(f'the chunked fit ran {strict.ran} chunks under '
+                           f'the sync check, not 1')
 
     vol = sample_3d_grid(predictor, opt.params, fov=FOV,
                          resolution=RECOVERY_RES)
@@ -1041,11 +1195,14 @@ def recovery_fit(compute_dtype, geos, hotspot, t_frames, t_injection, movie,
     result = {'psnr_3d': psnr_3d, 'lc_err_pct': lc_err_pct, 'wall_s': wall_s,
               'steps_per_s': RECOVERY_STEPS / wall_s,
               'n': crt.coords.shape[1], 'steps': opt.state.step,
-              'final_loss': float(opt.loss)}
+              'final_loss': float(opt.loss), 'scan_chunk': scan_chunk}
     n_in = int((crt.t_geos_rel > -1e29).sum())
+    loop = (f'chunks of {scan_chunk}, the first under '
+            f"set_sync_debug_mode('error')" if scan_chunk
+            else 'the per-step loop')
     log(f'recovery fit, {compute_dtype}: {RECOVERY_STEPS} steps of batch '
-        f'{BATCH} at N = {result["n"]} ({n_in} samples in the domain) in '
-        f'{wall_s:.2f} s '
+        f'{BATCH} in {loop} at N = {result["n"]} ({n_in} samples in the '
+        f'domain) in {wall_s:.2f} s '
         f'({result["steps_per_s"]:.2f} steps/s, checkpoints '
         f'{"every " + str(RECOVERY_SAVE_PERIOD) if checkpoint_dir else "off"}'
         f'); launches fwd {launches[0]}, bwd {launches[1]}; final loss '
@@ -1109,9 +1266,9 @@ def recovery_phase(kernels, geos, device):
     import tempfile
 
     hotspot, t_frames, t_injection, movie = recovery_target(geos, device)
-    fit = lambda compute_dtype, ckpt='': recovery_fit(
+    fit = lambda compute_dtype, ckpt='', scan_chunk=0: recovery_fit(
         compute_dtype, geos, hotspot, t_frames, t_injection, movie, device,
-        ckpt)
+        ckpt, scan_chunk)
     runs = {}
     with tempfile.TemporaryDirectory() as ckpt:
         runs['float32'] = fit('float32', ckpt)
@@ -1119,11 +1276,23 @@ def recovery_phase(kernels, geos, device):
         recovery_checkpoint_checks(opt, crt, ckpt, device)
         opt.checkpoint_dir = ''
     runs['bfloat16'] = fit('bfloat16')
+    runs['bfloat16_chunked'] = fit('bfloat16', scan_chunk=RECOVERY_SCAN_CHUNK)
     # the fit's loop synchronises only at its end: the device's busy
     # share against that loop's step time
-    for compute_dtype, (result, opt, train_step, crt, _) in runs.items():
-        profile_path(f'recovery {compute_dtype}', opt, train_step, crt,
-                     1e3 / result['steps_per_s'])
+    idle = {}
+    for name, (result, opt, train_step, crt, _) in runs.items():
+        step_ms = 1e3 / result['steps_per_s']
+        busy_ms = profile_path(
+            f'recovery {name}', opt, train_step, crt, step_ms,
+            steps=50 if result['scan_chunk'] else 10,
+            scan_chunk=result['scan_chunk'])
+        idle[name] = result['device_idle_share'] = 1.0 - busy_ms / step_ms
+    per_step, chunked = runs['bfloat16'][0], runs['bfloat16_chunked'][0]
+    log(f'recovery bf16, chunked against per-step: '
+        f'{chunked["steps_per_s"]:.2f} against {per_step["steps_per_s"]:.2f}'
+        f' steps/s, device idle {idle["bfloat16_chunked"]:.3f} against '
+        f'{idle["bfloat16"]:.3f} of a step; psnr_3d '
+        f'{chunked["psnr_3d"]:.2f} against {per_step["psnr_3d"]:.2f} dB')
     # both fits compact the same samples
     checks = recovery_kernel_checks(opt.predictor, crt,
                                     np.asarray(t_frames.value, np.float32),
@@ -1133,7 +1302,145 @@ def recovery_phase(kernels, geos, device):
             'n': crt.coords.shape[1],
             'launches': {k: run[4][i] for k, run in runs.items()},
             **{dtype: c[kind] for dtype, c in checks.items()}}
+        entry.setdefault('scan', {})['recovery_bf16_chunked'] = \
+            runs['bfloat16_chunked'][4][i]
     return {k: run[0] for k, run in runs.items()}
+
+
+def fit_script_phase(kernels, device):
+    """The fit script's sweep (bhnerf_tpu_torch.scripts.
+    fit_alma_lp_apr11_sgra_flare.run_sweep) at the configuration's full
+    width on a synthetic observation, with writers that keep the logs in
+    memory: FIT_INCS x seed FIT_SEED, FIT_STEPS steps each in chunks of
+    FIT_PERIOD with logs and checkpoints every FIT_PERIOD steps; both
+    kernels against their plain versions (float32) on each inclination's
+    compacted ray constants, at the training batch and at the 20-frame
+    batch of the datafit renders; chi2_df over the inclinations (both
+    cells at step FIT_STEPS); then --resume of the first run to
+    FIT_RESUME_STEPS, which must continue from FIT_STEPS. Fills the
+    fit_sweep block of the JSON kernel entries and returns the phase's
+    summary."""
+    import tempfile
+    import torch
+    from bhnerf_tpu_torch import alma, config, units
+    from bhnerf_tpu_torch.ops import fused
+    from bhnerf_tpu_torch.scripts import fit_alma_lp_apr11_sgra_flare as fit
+    from bhnerf_tpu_torch.train.logging import MemoryWriter
+
+    t_phase = time.perf_counter()
+    trace = {'ngeo': NGEO, 'n_fine': N_FINE}
+    with tempfile.TemporaryDirectory() as root:
+        cfg = config.RunConfig.from_yaml(fit.CONFIG_PATH)
+        cfg.preprocess.data_path = fit.write_synthetic_observation(
+            os.path.join(root, 'obs.csv'))
+        opt_cfg = cfg.optimization
+        opt_cfg.log_dir = os.path.join(root, 'runs')
+        opt_cfg.checkpoint_dir = os.path.join(root, 'ckpt')
+        opt_cfg.hparams.num_iters = FIT_STEPS
+        opt_cfg.scan_chunk = opt_cfg.log_period = opt_cfg.save_period = \
+            FIT_PERIOD
+        _, train, val = fit.split_data(cfg, device)
+        kw = dict(device=device, model_overrides=trace, verbose=False)
+
+        def sweep(incs, **extra):
+            fused.render_fwd.launches = 0
+            fused.render_bwd.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            records = fit.run_sweep(cfg, incs, [FIT_SEED], MemoryWriter,
+                                    **kw, **extra)
+            torch.cuda.synchronize()
+            return records, time.perf_counter() - t0, (
+                fused.render_fwd.launches, fused.render_bwd.launches)
+
+        records, sweep_s, launches = sweep(list(FIT_INCS))
+        # each log renders the training and validation movies (one forward
+        # launch per 20 frames); the training steps launch the rest
+        logs = FIT_STEPS // FIT_PERIOD
+        test_fwd = logs * (-(-len(train['t']) // 20) - (-len(val['t']) // 20))
+        for r in records:
+            w = r['writer']
+            losses = [v for _, v in w.scalars['log_loss/train']]
+            log(f'fit script: {r["run"]} steps {r["first_step"]}..'
+                f'{r["last_step"]}, log10 training loss {losses[0]:.4f} -> '
+                f'{losses[-1]:.4f}; datafit training '
+                f'{w.scalars["datafit/training"]}, validation '
+                f'{w.scalars["datafit/validation"]}; volumes at steps '
+                f'{[s for s, _ in w.volumes["emission/estimate"]]}')
+            if (r['first_step'], r['last_step']) != (1, FIT_STEPS) \
+                    or len(losses) != FIT_STEPS \
+                    or not np.isfinite(losses).all():
+                raise RuntimeError(f'fit script: bad run {r["run"]}')
+        expected = (len(FIT_INCS) * (FIT_STEPS + test_fwd),
+                    len(FIT_INCS) * FIT_STEPS)
+        log(f'fit script: {len(records)} runs of {FIT_STEPS} steps '
+            f'({len(train["t"])} training and {len(val["t"])} validation '
+            f'frames, ensemble of {cfg.model.num_subrays}) in {sweep_s:.1f} s'
+            f' with the host traces; launches fwd {launches[0]}, bwd '
+            f'{launches[1]} (expected {expected})')
+        if len(records) != len(FIT_INCS) or launches != expected:
+            raise RuntimeError(f'fit script: {len(records)} runs, launches '
+                               f'{launches}')
+
+        # the kernels at the sweep's shapes: each inclination's 'gather'
+        # table of one variant (learn_injection off, so no frame-time
+        # cotangent), the training batch and the datafit renders' batch
+        checks = {}
+        t_train = np.asarray(train['t'], np.float32)
+        for r in records:
+            opt = r['optimizer']
+            for v, crt in enumerate(opt.raytracing_args):
+                for batch in (BATCH, 20):
+                    c = recovery_kernel_checks(
+                        opt.predictor, crt, t_train, device,
+                        label=f'fit sweep inc {r["inclination"]:g} variant '
+                              f'{v}', dtypes=('float32',), batch=batch)
+                    checks[f'inc_{r["inclination"]:g}_v{v}_b{batch}'] = \
+                        dict(n=crt.coords.shape[1], float32=c['float32'])
+
+        # chi2 of the cells as the sweep left them: both at FIT_STEPS
+        t0 = time.perf_counter()
+        df = alma.chi2_df(
+            list(FIT_INCS), cfg.model.spin, [FIT_SEED],
+            dict(cfg.model.asdict(), **trace),
+            os.path.join(opt_cfg.checkpoint_dir, fit.RUN_NAME),
+            units.Quantity(train['t'], 'hr'), train['data'],
+            sigma=np.asarray(opt_cfg.sigma),
+            rot_angle=np.deg2rad(cfg.preprocess.de_rot_angle + 20.0),
+            num_subpixel_rays=cfg.model.num_subrays,
+            checkpoint_name=f'checkpoint_{FIT_STEPS}', device=device)
+        chi2_s = time.perf_counter() - t0
+        chi2 = df.values
+        log(f'fit script chi2_df at step {FIT_STEPS} ({chi2_s:.1f} s): '
+            + ', '.join(f'inc {inc:g}: {c:.6g}'
+                        for inc, c in zip(df.index, chi2[:, 0])))
+        if chi2.shape != (len(FIT_INCS), 1) or not np.isfinite(chi2).all():
+            raise RuntimeError(f'chi2_df: {df}')
+
+        opt_cfg.hparams.num_iters = FIT_RESUME_STEPS
+        resumed, resume_s, resume_launches = sweep(list(FIT_INCS[:1]),
+                                                   resume=True)
+        (r,) = resumed
+        steps = [s for s, _ in r['writer'].scalars['log_loss/train']]
+        log(f'fit script --resume: {r["run"]} continued at step '
+            f'{r["first_step"]} to {r["last_step"]} in {resume_s:.1f} s; '
+            f'launches fwd {resume_launches[0]}, bwd {resume_launches[1]}')
+        if (r['first_step'], r['last_step']) != (FIT_STEPS + 1,
+                                                 FIT_RESUME_STEPS) \
+                or steps[0] != FIT_STEPS + 1 \
+                or resume_launches[1] != FIT_RESUME_STEPS - FIT_STEPS:
+            raise RuntimeError('fit script: the resume did not continue '
+                               'from the saved step')
+    phase_s = time.perf_counter() - t_phase
+    log(f'fit script phase: {phase_s:.1f} s')
+    for i, (entry, kind) in enumerate(zip(kernels, ('fwd', 'bwd'))):
+        entry['fit_sweep'] = {
+            'launches': launches[i], 'resume_launches': resume_launches[i],
+            **{name: dict(n=c['n'], float32=c['float32'][kind])
+               for name, c in checks.items()}}
+    return {'runs': len(records), 'steps': FIT_STEPS, 'sweep_s': sweep_s,
+            'resume_s': resume_s, 'chi2_s': chi2_s, 'phase_s': phase_s,
+            'chi2': {str(k): float(v) for k, v in zip(df.index, chi2[:, 0])}}
 
 
 def eht_observation(geos, hotspot, npix, device):
@@ -1457,13 +1764,18 @@ def main():
     launches, opt, train_step, step_ms = train_main_path(
         predictor, crt, t_frames, device)
     profile_path('Tutorial-3', opt, train_step, crt, step_ms)
-    alma_phase(kernels, device)
+    alma_chunked = alma_phase(kernels, device)
     recovery = recovery_phase(kernels, geos, device)
+    fit_script = fit_script_phase(kernels, device)
     eht = eht_phase(kernels, geos, device)
     for entry, count in zip(kernels, launches):
         entry['launches'] = count
         entry['launches_per_step'] = count / STEPS
     print(json.dumps({'recovery': recovery}), flush=True)
+    print(json.dumps({'scan': {
+        'recovery_bf16_chunked': recovery['bfloat16_chunked'],
+        'alma_lc_chunked': alma_chunked, 'fit_script': fit_script}}),
+        flush=True)
     print(json.dumps({'eht': eht}), flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -591,3 +591,95 @@ def test_measurement_operator_ignores_tf32_on_card(cuda_device, operator):
     ref = (rows.double() @ cols.double()).cpu().numpy()
     err = lambda r: float(np.abs(r.cpu().numpy() - ref).max())
     assert err(out[True][2]) > 10 * err(out[False][2])
+
+
+def _tutorial3_fit(device, nt=12, width=128):
+    """The Tutorial-3 training step at a small size on the card: seeded
+    ray constants (16x16 rays, 64 samples) compacted in the 'gather'
+    layout, the 4-layer MLP (width 128 unless said), the fused 'full'
+    image loss on a seeded movie."""
+    from bhnerf_tpu_torch.train.optimizer import TrainStep
+    rng = np.random.default_rng(3)
+    shape = (16, 16, 64)
+    put = lambda x: torch.as_tensor(np.asarray(x, np.float32)).to(device)
+    rt = step.RayTracingArgs(
+        coords=put(rng.uniform(-8, 8, (3, *shape))),
+        Omega=put(rng.uniform(0.01, 0.1, shape)), J=1.0,
+        g=put(rng.uniform(0.5, 1.5, shape)),
+        dtau=put(rng.uniform(0.01, 0.02, shape)),
+        Sigma=put(rng.uniform(10, 100, shape)),
+        t_geos_rel=put(rng.uniform(0, 30, shape)),
+        t_injection=torch.zeros((), device=device), t_to_M=100.0,
+        t_units=units.hr)
+    pred = NeRFPredictor(scale=8.0, rmin=3.0, rmax=8.0, z_width=2.0,
+                         net_width=width)
+    crt = step.compact_raytracing_args(rt, pred, layout='gather')
+    t_q = units.Quantity(np.linspace(0.0, 0.1, nt), 'hr')
+    target = 0.02 * rng.random((nt, 16, 16), dtype=np.float32)
+    train_step = TrainStep.image(t_q, target, pred, fused=True,
+                                 device=device)
+    return pred, crt, train_step
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('route', ['make_scan_step', 'Optimizer'])
+@pytest.mark.parametrize('width', [128, 100])
+def test_chunk_runs_without_synchronising_on_card(cuda_device, width, route):
+    """The first chunk of a fit, 8 Tutorial-3 steps with its frame indices
+    already on the card, runs under torch.cuda.set_sync_debug_mode('error'):
+    nothing inside it (Adam's first update included) reads a value back,
+    copies from the host or synchronises, at width 128 and at a width the
+    wrappers pad to 112, through make_scan_step and through the
+    Optimizer's chunk (TrainStep calls); it launches one forward and one
+    backward kernel a step, and its losses are finite."""
+    from bhnerf_tpu_torch.train.optimizer import Optimizer
+    from bhnerf_tpu_torch.train.state import TrainState, make_optimizer
+    fused._lib()                        # the build, outside the chunk
+    pred, crt, train_step = _tutorial3_fit(cuda_device, width=width)
+    state = TrainState.create(
+        pred.init_params(generator=torch.Generator().manual_seed(0),
+                         device=cuda_device), make_optimizer(20))
+    frames = train_step.args[0].device_args
+    gen = torch.Generator().manual_seed(1)
+    indices = torch.stack([torch.randperm(12, generator=gen)[:4]
+                           for _ in range(8)]).to(cuda_device)
+    if route == 'Optimizer':
+        opt = Optimizer({'num_iters': 20}, pred, crt, device=cuda_device)
+        opt.state = state
+
+        def fn(state, *args):
+            return opt.state, opt._chunk(train_step, [crt], indices, [0] * 8)
+    else:
+        fn = step.make_scan_step(batchsize=4, chunk=8,
+                                 **train_step.scan_meta)
+    torch.cuda.synchronize()
+    fused.render_fwd.launches = fused.render_bwd.launches = 0
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        state, losses = fn(state, *frames, indices, [0] * 8, crt, 1.0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert (fused.render_fwd.launches, fused.render_bwd.launches) == (8, 8)
+    assert tuple(losses.shape) == (8,)
+    assert bool(torch.isfinite(losses).all()) and state.step == 8
+
+
+@pytest.mark.cuda
+def test_chunked_run_matches_per_step_run_on_card(cuda_device):
+    """Optimizer.run with scan_chunk=8 and the per-step loop from the same
+    seed draw the same batches and give the same loss series on the card,
+    to float32 round-off (the per-pixel reduce sums with atomics, so the
+    two runs are not bitwise equal): rtol 1e-5 at every step."""
+    from bhnerf_tpu_torch.train.optimizer import LogFn, Optimizer
+    pred, crt, train_step = _tutorial3_fit(cuda_device)
+    series = {}
+    for scan_chunk in (0, 8):
+        opt = Optimizer({'num_iters': 20, 'lr_init': 1e-3, 'seed': 4}, pred,
+                        crt, device=cuda_device)
+        seen = series[scan_chunk] = []
+        opt.run(4, train_step, crt, verbose=False, scan_chunk=scan_chunk,
+                log_fns=[LogFn(lambda o: seen.append((o.step,
+                                                      float(o.loss))))])
+    assert [s for s, _ in series[8]] == list(range(1, 21))
+    np.testing.assert_allclose([l for _, l in series[8]],
+                               [l for _, l in series[0]], rtol=1e-5)
