@@ -18,7 +18,9 @@ import os
 import numpy as np
 
 from bhnerf_tpu_torch import constants, emission, units
-from bhnerf_tpu_torch.geodesics import image_plane_geos
+from bhnerf_tpu_torch.geodesics import (Geodesics, image_plane_geos,
+                                        subpixel_jittered_axes,
+                                        trace_geodesics)
 from bhnerf_tpu_torch.ops import gr
 from bhnerf_tpu_torch.train import step as step_lib
 
@@ -74,13 +76,15 @@ def preprocess_data(data_path, window_size, I_hs_mean, P_sha, chi_sha,
 
 
 def image_plane_model(inc, spin, params, rot_angle=0.0,
-                      randomize_subpixel_rays=False, rng=None):
+                      randomize_subpixel_rays=False, rng=None,
+                      backend='cpu', mesh=None, device='cuda'):
     """Geodesics + Keplerian velocity + normalized fluid-frame B field +
     polarized transport factors (reference alma.py:46-65). params is the
     model block of the fit configuration; its optional keys ngeo and
-    n_fine size the host trace (100 samples a ray and 8192 fine steps
-    when absent, the tracer's defaults). rng: np.random.Generator for the
-    sub-pixel jitter."""
+    n_fine size the trace (100 samples a ray and 8192 fine steps when
+    absent, the tracer's defaults). rng: np.random.Generator for the
+    sub-pixel jitter. backend='device' traces in float32 on `device`
+    (geodesics.trace_geodesics); the physics stays host float64."""
     fov_M = params['fov_M']
     geos = image_plane_geos(
         spin, inc, num_alpha=params['num_alpha'],
@@ -88,7 +92,8 @@ def image_plane_model(inc, spin, params, rot_angle=0.0,
         alpha_range=[-fov_M / 2, fov_M / 2],
         beta_range=[-fov_M / 2, fov_M / 2],
         ngeo=params.get('ngeo', 100), n_fine=params.get('n_fine', 8192),
-        randomize_subpixel_rays=randomize_subpixel_rays, rng=rng)
+        randomize_subpixel_rays=randomize_subpixel_rays, rng=rng,
+        backend=backend, mesh=mesh, device=device)
     return _model_physics(geos, params, rot_angle)
 
 
@@ -119,19 +124,57 @@ def _model_physics(geos, params, rot_angle):
     return geos, Omega, emission.rotate_evpa(J, rot_angle)
 
 
+def _trace_subpixel_ensemble(inc, spin, params, num_variants, rng,
+                             backend, mesh=None, device='cuda'):
+    """Trace all sub-pixel-ray variants in one trace_geodesics call
+    (reference alma.py:98-128): the V jittered screen grids stacked as
+    (V, na, nb), one kernel launch on the card instead of V, then split
+    back into per-variant Geodesics. The jitter is drawn by
+    subpixel_jittered_axes variant after variant, the alpha axis before
+    the beta axis, so a seed gives the grids of the per-variant
+    image_plane_geos loop and of the JAX package."""
+    num_alpha, num_beta = params['num_alpha'], params['num_beta']
+    fov_M = params['fov_M']
+    rng = np.random.default_rng() if rng is None else rng
+    ranges = ((-fov_M / 2, fov_M / 2), (-fov_M / 2, fov_M / 2))
+    alphas, betas = [], []
+    for _ in range(num_variants):
+        a1, b1 = subpixel_jittered_axes(*ranges, num_alpha, num_beta, rng)
+        a, b = np.meshgrid(a1, b1, indexing='ij')
+        alphas.append(a)
+        betas.append(b)
+    geos_all = trace_geodesics(
+        np.stack(alphas), np.stack(betas), spin, inc,
+        ngeo=params.get('ngeo', 100), n_fine=params.get('n_fine', 8192),
+        backend=backend, mesh=mesh, device=device)
+    return [dataclasses.replace(
+        geos_all, **{f: getattr(geos_all, f)[v] for f in Geodesics._FIELDS})
+        for v in range(num_variants)]
+
+
 def get_raytracing_args(inc, spin, params, stokes=('I', 'Q', 'U'),
                         rot_angle=0.0, num_subpixel_rays=1, rng=None,
-                        device='cuda'):
+                        backend='cpu', mesh=None, device='cuda'):
     """Sub-pixel ray ensemble of RayTracingArgs on `device` (reference
-    alma.py:131-161): num_subpixel_rays tables, each traced on the host
-    with its own sub-pixel jitter drawn from `rng` (one regular grid when
-    num_subpixel_rays is 1)."""
+    alma.py:131-161): num_subpixel_rays tables, each with its own
+    sub-pixel jitter drawn from `rng` (one regular grid when
+    num_subpixel_rays is 1). backend='cpu' traces each table on the host
+    in float64; backend='device' traces in float32 on `device`, the whole
+    ensemble in one launch (_trace_subpixel_ensemble)."""
     J_inds = [['I', 'Q', 'U'].index(s) for s in stokes]
     randomize = num_subpixel_rays > 1
+    geos_list = (_trace_subpixel_ensemble(inc, spin, params,
+                                          num_subpixel_rays, rng, backend,
+                                          mesh=mesh, device=device)
+                 if backend == 'device' and randomize else None)
     args_list = []
-    for _ in range(num_subpixel_rays):
-        geos, Omega, J = image_plane_model(inc, spin, params, rot_angle,
-                                           randomize, rng=rng)
+    for i in range(num_subpixel_rays):
+        if geos_list is None:
+            geos, Omega, J = image_plane_model(
+                inc, spin, params, rot_angle, randomize, rng=rng,
+                backend=backend, mesh=mesh, device=device)
+        else:
+            geos, Omega, J = _model_physics(geos_list[i], params, rot_angle)
         t_injection = -float(geos.r_o + params['fov_M'] / 4)
         args_list.append(step_lib.raytracing_args(
             geos, Omega, t_injection,
@@ -193,13 +236,18 @@ def chi2_df(inclinations, spins, seeds, params, checkpoint_fmt, t, data,
     chi^2 of its directory's latest checkpoint (image_plane_checkpoint),
     which is `checkpoint_name` only if no later one was saved. The ray
     constants are traced on the host
-    once per grid point and live on `device`. The device tracer
-    (backend='device') and a device mesh are not ported yet."""
+    once per grid point, on the host in float64 (backend='cpu') or in float32
+    on `device` (backend='device'), and live on `device`. A device mesh is
+    not ported."""
     import pandas as pd
 
-    if backend != 'cpu' or mesh is not None:
+    if backend not in ('cpu', 'device'):
+        raise ValueError(f"backend must be 'cpu' or 'device', got "
+                         f'{backend!r}')
+    if mesh is not None:
         raise NotImplementedError(
-            "chi2_df traces on the host only (backend='cpu', mesh=None)")
+            'mesh-sharded tracing is not ported; chi2_df traces on one '
+            'device')
     inclinations = np.atleast_1d(inclinations)
     spins = np.atleast_1d(spins)
     if len(inclinations) == 1 and len(spins) > 1:
@@ -223,7 +271,7 @@ def chi2_df(inclinations, spins, seeds, params, checkpoint_fmt, t, data,
             if inc_prev != inc or spin_prev != spin:
                 rt_args = get_raytracing_args(
                     np.deg2rad(inc), spin, params, stokes, rot_angle,
-                    num_subpixel_rays, device=device)
+                    num_subpixel_rays, backend=backend, device=device)
                 inc_prev, spin_prev = inc, spin
             data_fit[i, j] = chi2_lightcurves(rt_args, checkpoint_dir, t,
                                               data, sigma)

@@ -1,10 +1,12 @@
-"""Geodesics container + image-plane tracing (host float64).
+"""Geodesics container + image-plane tracing.
 
 PyTorch counterpart of `bhnerf_tpu/geodesics/dataset.py`. Geodesic tables
-are a once-per-configuration host precompute in float64, as in the
-reference; the training that consumes them runs on the GPU. The container
-keeps host numpy float64 leaves and writes the same npz format as the
-reference (`save`/`load`), so tables cross between the two packages.
+are a once-per-configuration precompute: by default on the host in
+float64, as in the reference, or with backend='device' in float32 on the
+card by the tracer kernel (`integrator.trace_rays`); the training that
+consumes them runs on the GPU. The container keeps host numpy leaves and
+writes the same npz format as the reference (`save`/`load`), so tables
+cross between the two packages.
 
 Array layout matches the reference: (num_alpha, num_beta, ngeo).
 """
@@ -126,6 +128,11 @@ class Geodesics:
         """Stacked [x, y, z] (axis 0), the NeRF sampling coordinates."""
         return np.stack([self.x, self.y, self.z], axis=0)
 
+    def fillna(self, value=0.0):
+        """xarray-API parity (reference dataset.py:147); the tracer produces
+        no NaNs."""
+        return self
+
     def save(self, path):
         """Serialize to .npz (the reference's format, dataset.py:151-156)."""
         arrays = {f: np.asarray(getattr(self, f)) for f in self._FIELDS}
@@ -165,11 +172,16 @@ def subpixel_jittered_axes(alpha_range, beta_range, num_alpha, num_beta,
 def image_plane_geos(spin, inclination, alpha_range, beta_range, ngeo=100,
                      num_alpha=64, num_beta=64, distance=1000.0, E=1.0, M=1.0,
                      randomize_subpixel_rays=False, rng=None, tau_max=4.0,
-                     n_fine=8192, substeps=8) -> Geodesics:
+                     n_fine=8192, substeps=8, dtype=None, backend='cpu',
+                     mesh=None, verbose=False, device='cuda') -> Geodesics:
     """Trace Kerr geodesics for an image-plane grid (reference
-    bhnerf/kgeo.py:6-63), host float64. With randomize_subpixel_rays the
-    grid axes are jittered within a pixel from `rng` (a
-    np.random.Generator; a fresh one when None)."""
+    bhnerf/kgeo.py:6-63, bhnerf_tpu/geodesics/dataset.py:218-241): on the
+    host in float64 by default, or in float32 on `device` with
+    backend='device' (see trace_geodesics). With randomize_subpixel_rays
+    the grid axes are jittered within a pixel from `rng` (a
+    np.random.Generator; a fresh one when None). `verbose` is accepted
+    for the reference's signature and ignored."""
+    del verbose
     if randomize_subpixel_rays:
         rng = np.random.default_rng() if rng is None else rng
         alpha_1d, beta_1d = subpixel_jittered_axes(
@@ -180,15 +192,32 @@ def image_plane_geos(spin, inclination, alpha_range, beta_range, ngeo=100,
     alpha, beta = np.meshgrid(alpha_1d, beta_1d, indexing='ij')
     return trace_geodesics(alpha, beta, spin, inclination, ngeo=ngeo,
                            distance=distance, E=E, M=M, tau_max=tau_max,
-                           n_fine=n_fine, substeps=substeps)
+                           n_fine=n_fine, substeps=substeps, dtype=dtype,
+                           backend=backend, mesh=mesh, device=device)
 
 
 def trace_geodesics(alpha, beta, spin, inclination, ngeo=100, distance=1000.0,
-                    E=1.0, M=1.0, tau_max=4.0, n_fine=8192,
-                    substeps=8) -> Geodesics:
-    """Trace geodesics for arbitrary (alpha, beta) screen points on the
-    host CPU in float64. alpha/beta may be any (matching) shape; output
-    arrays get a trailing ngeo axis."""
+                    E=1.0, M=1.0, tau_max=4.0, n_fine=8192, substeps=8,
+                    dtype=None, backend='cpu', mesh=None,
+                    device='cuda') -> Geodesics:
+    """Trace geodesics for arbitrary (alpha, beta) screen points; alpha/beta
+    may be any (matching) shape and output arrays get a trailing ngeo axis
+    (reference dataset.py:244-365).
+
+    backend='cpu' (the default) traces on the host in `dtype` (float64
+    unless given), the reference's precision contract for tables.
+    backend='device' traces in float32 on `device`, which only this
+    backend reads: on a CUDA device one launch of the tracer kernel
+    (`integrator.trace_rays`), on 'cpu' its plain float32 version. The
+    float32 trace follows the float64 one to ~1e-4 relative in r and
+    ~1e-3 M in t at the 90th percentile; near-critical rays diverge in
+    their far field (r >> fov), outside the emission domain that consumers
+    keep (tests/test_geodesics.py:318-402 holds the reference to the same
+    bars). As in the reference, r, theta and phi come out in the trace
+    dtype, t = t - t_c folded in float64 on the host, and alpha, beta,
+    lam, eta and tau_final in the trace dtype. Every ray is independent,
+    so the rays are traced as given (no padding). `mesh` (sharding the
+    rays over cards) is not ported."""
     if not 0.0 <= spin < 1.0:
         raise ValueError(f'spin must be in [0, 1), got {spin}')
     if not (E == 1.0 and M == 1.0):
@@ -197,23 +226,39 @@ def trace_geodesics(alpha, beta, spin, inclination, ngeo=100, distance=1000.0,
         raise ValueError(
             f'geodesics are traced in M=E=1 units (got M={M}, E={E}); '
             f'scale times/lengths via constants.GM_c3 / GM_c2')
+    if backend not in ('cpu', 'device'):
+        raise ValueError(f"backend must be 'cpu' or 'device', got "
+                         f'{backend!r}')
+    if backend == 'device':
+        if dtype is not None and np.dtype(dtype) == np.float64:
+            raise ValueError(
+                "backend='device' traces in float32; drop the dtype "
+                "argument or use backend='cpu' for the float64 host trace")
+        dtype = np.float32
+    elif dtype is None:
+        dtype = np.float64
+    dtype = np.dtype(dtype)
+    if mesh is not None:
+        raise NotImplementedError(
+            'mesh-sharded tracing is not ported; trace on one device')
 
     # exactly polar observers hit the phi coordinate singularity; nudge
     # off the axis (physically indistinguishable at 1e-6 rad)
     inclination = float(np.clip(inclination, 1e-6, np.pi - 1e-6))
     shape = np.shape(alpha)
-    alpha_flat = np.ravel(np.asarray(alpha, np.float64))
-    beta_flat = np.ravel(np.asarray(beta, np.float64))
+    alpha_flat = np.ravel(np.asarray(alpha, dtype))
+    beta_flat = np.ravel(np.asarray(beta, dtype))
 
     state0, lam, eta = integrator.initial_state(
-        alpha_flat, beta_flat, spin, inclination, distance, torch.float64)
-    tau_final = integrator.terminal_mino_time(
-        state0, spin, lam, eta, distance, tau_max=tau_max, n_fine=n_fine)
-    samples = integrator.sample_rays(
-        state0, tau_final, spin, lam, eta, r_o=distance, ngeo=ngeo,
-        substeps=substeps)
-    samples = {k: v.numpy() for k, v in samples.items()}
-    tau_final, lam, eta = tau_final.numpy(), lam.numpy(), eta.numpy()
+        alpha_flat, beta_flat, spin, inclination, distance,
+        torch.float32 if dtype == np.float32 else torch.float64)
+    on = torch.device(device if backend == 'device' else 'cpu')
+    state0 = integrator.RayState(*(x.to(on) for x in state0))
+    tau_final, samples = integrator.trace_rays(
+        state0, spin, lam.to(on), eta.to(on), r_o=distance, tau_max=tau_max,
+        n_fine=n_fine, ngeo=ngeo, substeps=substeps)
+    samples = {k: v.cpu().numpy() for k, v in samples.items()}
+    tau_final, lam, eta = tau_final.cpu().numpy(), lam.numpy(), eta.numpy()
 
     def per_sample(arr):
         # (ngeo, npix) -> (*shape, ngeo)
@@ -222,8 +267,11 @@ def trace_geodesics(alpha, beta, spin, inclination, ngeo=100, distance=1000.0,
     r = per_sample(1.0 / samples['u'])
     theta = per_sample(np.arccos(np.clip(samples['c'], -1.0, 1.0)))
     phi = per_sample(samples['phi'])
-    # fold the integrator's running Kahan error back in
-    t = per_sample(samples['t'] - samples['t_c'])
+    # fold the integrator's running Kahan error back in, in float64: for
+    # the float32 trace this recovers the low bits of the one quantity
+    # that grows to O(r_o) while downstream needs O(1) differences
+    t = per_sample(samples['t'].astype(np.float64)
+                   - samples['t_c'].astype(np.float64))
     pm_r = per_sample(samples['pm_r'])
     pm_th = per_sample(samples['pm_th'])
 

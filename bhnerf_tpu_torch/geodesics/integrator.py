@@ -1,20 +1,30 @@
-"""Kerr null-geodesic integrator in torch (host float64).
+"""Kerr null-geodesic integrator in torch.
 
 PyTorch counterpart of `bhnerf_tpu/geodesics/integrator.py`: second-order
 Mino-time RK4 in (u = 1/r, c = cos theta) with a polynomial right-hand
 side, Kahan-compensated coordinate time, and two passes (pass 1 finds
 each ray's terminal Mino time with a fine step, pass 2 re-integrates and
-records `ngeo` uniform samples). Each `lax.scan` of the reference becomes
-a Python loop of vectorized tensor ops over the padded ray bucket.
+records `ngeo` uniform samples).
+
+Two versions of the same function. The plain one (`terminal_mino_time`,
+`sample_rays`, both in `trace_rays_plain`) turns each `lax.scan` of the
+reference into a Python loop of vectorized tensor ops over the rays, in
+the dtype of its inputs on their device: the host float64 trace, and in
+float32 the plain version of the kernel. `trace_rays` is the on-device
+float32 trace: one launch of the CUDA kernel `ops/csrc/geodesic_trace.cu`
+for a CUDA tensor, the plain version for a CPU tensor.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from bhnerf_tpu_torch.geodesics import kerr
+from bhnerf_tpu_torch.ops import _build
 
 
 class RayState(NamedTuple):
@@ -92,16 +102,22 @@ def initial_state(alpha, beta, spin, inc, r_o, dtype=torch.float64):
     return RayState(u0, ud0, c0, cd0, zeros, zeros, zeros), lam_t, eta_t
 
 
+def _stop_constants(spin, r_o, r_stop_factor):
+    """(u_clip, u_escape, u_floor): the horizon-stop surface, the escape
+    radius and the floor of u, as Python floats (both passes)."""
+    return (1.0 / (kerr.horizon(spin) * r_stop_factor),
+            (1.0 / r_o) * (1.0 - 1e-9), 0.5 / r_o)
+
+
 @torch.no_grad()
 def terminal_mino_time(state0, spin, lam, eta, r_o, tau_max=4.0, n_fine=8192,
                        r_stop_factor=1.05):
     """Pass 1: fine fixed-step integration to find each ray's terminal Mino
     time (horizon approach or escape past the observer radius)."""
     dtype = state0.u.dtype
-    h = torch.tensor(tau_max / n_fine, dtype=dtype)
-    u_horizon = 1.0 / (kerr.horizon(spin) * r_stop_factor)
-    u_escape = (1.0 / r_o) * (1.0 - 1e-9)
-    u_floor = 0.5 / r_o
+    h = torch.tensor(tau_max / n_fine, dtype=dtype, device=state0.u.device)
+    u_horizon, u_escape, u_floor = _stop_constants(spin, r_o,
+                                                   r_stop_factor)
 
     s = state0
     terminated = torch.zeros_like(s.u, dtype=torch.bool)
@@ -116,6 +132,10 @@ def terminal_mino_time(state0, spin, lam, eta, r_o, tau_max=4.0, n_fine=8192,
         tau_term = torch.where(newly, float(i) * h, tau_term)
         terminated = terminated | hit
         s = s_next
+        # once every ray has stopped, later steps change nothing (a check
+        # every 256 steps, so the card is not synchronised each step)
+        if i % 256 == 255 and bool(terminated.all()):
+            break
     return tau_term
 
 
@@ -129,9 +149,7 @@ def sample_rays(state0, tau_final, spin, lam, eta, r_o=1000.0, ngeo=100,
     time right at the observer. Returns a dict of (ngeo, nrays) tensors.
     """
     tau_seg = tau_final / (ngeo - 1)
-    u_clip = 1.0 / (kerr.horizon(spin) * r_stop_factor)
-    u_escape = (1.0 / r_o) * (1.0 - 1e-9)
-    u_floor = 0.5 / r_o
+    u_clip, u_escape, u_floor = _stop_constants(spin, r_o, r_stop_factor)
 
     def record(s: RayState):
         return {
@@ -161,3 +179,83 @@ def sample_rays(state0, tau_final, spin, lam, eta, r_o=1000.0, ngeo=100,
         s = advance_segment(s, substeps)
         records.append(record(s))
     return {k: torch.stack([r[k] for r in records]) for k in records[0]}
+
+
+def trace_rays_plain(state0, spin, lam, eta, r_o=1000.0, tau_max=4.0,
+                     n_fine=8192, ngeo=100, substeps=8, first_substeps=512,
+                     r_stop_factor=1.05):
+    """Both passes in torch ops, in the dtype and on the device of the
+    inputs. Returns (tau_final (n,), samples): a dict of (ngeo, n) tensors
+    u, c, phi, t, t_c, pm_r, pm_th."""
+    tau_final = terminal_mino_time(state0, spin, lam, eta, r_o,
+                                   tau_max=tau_max, n_fine=n_fine,
+                                   r_stop_factor=r_stop_factor)
+    samples = sample_rays(state0, tau_final, spin, lam, eta, r_o=r_o,
+                          ngeo=ngeo, substeps=substeps,
+                          first_substeps=first_substeps,
+                          r_stop_factor=r_stop_factor)
+    return tau_final, samples
+
+
+SAMPLE_FIELDS = ('u', 'c', 'phi', 't', 't_c', 'pm_r', 'pm_th')
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _build.load_library('geodesic_trace')
+    lib.geodesic_trace.argtypes = ([_P] * 5 + [_I] + [_F] * 8 + [_I] * 4
+                                   + [_P])
+    lib.geodesic_trace.restype = _I
+    lib.geodesic_trace_fields.restype = _I
+    if lib.geodesic_trace_fields() != len(SAMPLE_FIELDS):
+        raise RuntimeError('geodesic_trace.cu records other fields than '
+                           'SAMPLE_FIELDS')
+    return lib
+
+
+@torch.no_grad()
+def trace_rays(state0, spin, lam, eta, r_o=1000.0, tau_max=4.0, n_fine=8192,
+               ngeo=100, substeps=8, first_substeps=512, r_stop_factor=1.05):
+    """The float32 trace of `trace_rays_plain` as one launch of the CUDA
+    kernel for tensors on the card; tensors on the CPU take the plain
+    version (in their own dtype). state0 is `initial_state`'s RayState,
+    lam and eta its (n,) constants. Returns (tau_final, samples) as
+    `trace_rays_plain` does. `trace_rays.launches` counts the kernel's
+    launches."""
+    device = lam.device
+    if device.type == 'cpu':
+        return trace_rays_plain(state0, spin, lam, eta, r_o, tau_max, n_fine,
+                                ngeo, substeps, first_substeps,
+                                r_stop_factor)
+    if device.type != 'cuda':
+        raise ValueError(f'no geodesic kernel for device {device}')
+    n = lam.shape[0]
+    for x in (*state0, lam, eta):
+        if x.device != device or x.dtype != torch.float32 \
+                or x.shape != (n,) or not x.is_contiguous():
+            raise ValueError('the geodesic kernel takes contiguous float32 '
+                             '(n,) tensors on one CUDA device')
+    if n == 0 or ngeo < 2 or min(n_fine, substeps, first_substeps) < 1:
+        raise ValueError(f'nothing to trace: {n} rays, ngeo {ngeo}, n_fine '
+                         f'{n_fine}, substeps {substeps}/{first_substeps}')
+    u_clip, u_escape, u_floor = _stop_constants(spin, r_o, r_stop_factor)
+    f32 = lambda x: float(np.float32(x))
+    packed = torch.stack(tuple(state0))
+    out = torch.empty((len(SAMPLE_FIELDS), ngeo, n), dtype=torch.float32,
+                      device=device)
+    tau_final = torch.empty(n, dtype=torch.float32, device=device)
+    err = _lib().geodesic_trace(
+        packed.data_ptr(), lam.data_ptr(), eta.data_ptr(), out.data_ptr(),
+        tau_final.data_ptr(), n, f32(spin), f32(spin**2), f32(4.0 * spin**2),
+        f32(u_clip), f32(u_escape), f32(u_floor), f32(tau_max / n_fine),
+        f32(tau_max), n_fine, ngeo, substeps, first_substeps,
+        torch.cuda.current_stream(device).cuda_stream)
+    _build.check(err, 'geodesic_trace')
+    trace_rays.launches += 1
+    return tau_final, dict(zip(SAMPLE_FIELDS, out.unbind(0)))
+
+
+trace_rays.launches = 0

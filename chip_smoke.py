@@ -2,8 +2,9 @@
 their plain versions at the shapes of the training paths, train a few
 steps of the Tutorial-3 image fit and of the ALMA polarized-lightcurve fit
 at full width, recover a synthetic hotspot from its movie in 1000 steps
-(per step and in chunks) and from an ngEHT observation in 5000, and run
-the ALMA fit script's sweep, on one CUDA device.
+(per step and in chunks) and from an ngEHT observation in 5000, run
+the ALMA fit script's sweep, and trace geodesic tables on the card with
+the float32 tracer kernel, on one CUDA device.
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 nvcc:
@@ -12,7 +13,8 @@ nvcc:
 
 Phases (any failure raises and exits non-zero):
   1. device: requires CUDA, prints the card's name and power limit;
-  2. build: compiles csrc/*.cu for sm_90a and prints the build seconds;
+  2. build: compiles csrc/*.cu for sm_90a (one nvcc a source, in
+     parallel) and prints the build seconds and ptxas's registers;
   3. host precompute: f64 geodesics (64x64 rays x 100 samples, a table
      the recovery phase reuses), ray constants, domain compaction (the
      'gather' layout);
@@ -65,9 +67,11 @@ Phases (any failure raises and exits non-zero):
      kernels against their plain versions in float32 on each
      inclination's compacted table, at the training batch and at the
      20-frame batch of the datafit renders; alma.chi2_df over the
-     inclinations at step FIT_STEPS (finite, one value per cell); then
-     one run resumed to FIT_RESUME_STEPS (it must continue from
-     FIT_STEPS);
+     inclinations at step FIT_STEPS (finite, one value per cell) from
+     host tables and, beside it, chi2_df(backend='device') from tables of
+     the tracer kernel (one launch an inclination), both values and both
+     seconds printed; then one run resumed to FIT_RESUME_STEPS (it must
+     continue from FIT_STEPS);
   10. the EHT visibility path (bench_recovery.py --eht): the same hotspot's
      movie over the ngEHT window 4.0-15.5 UT rendered on the card and
      observed by the ngEHT array with thermal noise (observe_same), then
@@ -78,11 +82,28 @@ Phases (any failure raises and exits non-zero):
      versions at its sample count over the EHT window in float32 and
      bfloat16, the dense and the factored operator against each other on
      one batch, and EHT_OPERATOR_STEPS float32 steps of each with a
-     profile.
-The four lines before the last are the JSON recovery, chunked-loop and
-EHT summaries and the JSON kernel summary; the last line is {"ok": true,
-"device": {...}}.
+     profile;
+  11. the float32 device tracer (trace_geodesics(backend='device'), the
+     kernel of ops/csrc/geodesic_trace.cu): the kernel against its plain
+     version on the card at TRACE_CHECK_RAYS^2 rays x 100 samples of spin
+     0.94 at TRACE_CHECK_N_FINE fine steps and on the ALMA ensemble's
+     inputs (the drive's gate, median |dt|, the same terminal Mino time
+     on >= 95% of the rays); the float32 tables
+     against the host float64 ones of the earlier phases (the Tutorial-3
+     table; the four ALMA tables, traced by get_raytracing_args(backend=
+     'device') in one launch from the same seed, on the same screens) and
+     in the drive (bhnerf_tpu_torch.scripts.drive_device_geos, its own
+     host table); the hotspot lightcurve from the device table within 1%
+     of the host one; 20 ALMA 'lc' steps on the device-traced ensemble;
+     the kernel's ms at 64x64 (n_fine 8192), 128x128 and the ensemble,
+     with its bound and the time of its longest ray alone, and the wall
+     seconds of the traces and of get_raytracing_args against the host's.
+The five lines before the last are the JSON recovery, chunked-loop, EHT
+and device-trace summaries and the JSON kernel summary; the last line is
+{"ok": true, "device": {...}}.
 """
+import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import os
@@ -152,9 +173,20 @@ EHT_OPERATOR_STEPS = 200        # steps of each operator at that size
 EHT_MIN_PSNR = 45.0
 EHT_MAX_LC_ERR_PCT = 1.0
 # published dense peaks of one H100 SXM (NVIDIA's data sheet): TF32 tensor
-# cores and HBM3
+# cores, FP32 outside the tensor cores, and HBM3
 TF32_FLOPS = 495e12
+FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
+# the device tracer against its plain version (a float32 loop of torch ops
+# that launches ~450 kernels an RK4 step): TRACE_CHECK_RAYS^2 rays of the
+# drive's geometry at TRACE_CHECK_N_FINE fine steps keep that loop short
+TRACE_CHECK_RAYS = 32
+TRACE_CHECK_N_FINE = 2048
+# float32 operations of one RK4 step of the tracer (ops/csrc/
+# geodesic_trace.cu), each division counted as one: four right-hand sides
+# of 40 operations and 4 divisions, 24 stage updates, the step h/6 and
+# h/2, 36 for the weighted sums, 4 for Kahan's sum, 5 state updates
+RK4_OPS = 247
 
 
 def log(msg):
@@ -223,7 +255,8 @@ def bound(kind, cfg, feat, nt, n, n_params, compute_dtype, want_dt=False):
 
 def host_precompute(device):
     """The Tutorial-3 geometry's geodesic table and the main path's
-    compacted ray constants. Returns (geos, predictor, crt, t_frames)."""
+    compacted ray constants. Returns (geos, predictor, crt, t_frames, the
+    seconds of the host trace)."""
     from bhnerf_tpu_torch import constants, units
     from bhnerf_tpu_torch.geodesics import image_plane_geos
     from bhnerf_tpu_torch.models.fields import NeRFPredictor
@@ -254,7 +287,7 @@ def host_precompute(device):
         f'(n_fine {N_FINE}, f64) in {t_geo:.1f} s; compacted '
         f'{n_in}/{n_dense} samples ({100 * n_in / n_dense:.1f}%), padded '
         f'N = {crt.coords.shape[1]}')
-    return geos, predictor, crt, t_frames
+    return geos, predictor, crt, t_frames, t_geo
 
 
 def kernel_inputs(predictor, crt, t_frames, rng, device, batch=BATCH):
@@ -571,21 +604,55 @@ def profile_path(label, opt, train_step, crt, step_ms, steps=10,
     return busy_ms
 
 
+@contextlib.contextmanager
+def alma_recorder():
+    """Records what alma.get_raytracing_args traces and how long its parts
+    take: the tables it hands to the host physics (alma._model_physics)
+    and the seconds of the traces (image_plane_geos, trace_geodesics) and
+    of the physics. Yields the record."""
+    from bhnerf_tpu_torch import alma
+    rec = {'geos': [], 'trace_s': 0.0, 'physics_s': 0.0}
+    keys = {'image_plane_geos': 'trace_s', 'trace_geodesics': 'trace_s',
+            '_model_physics': 'physics_s'}
+    originals = {name: getattr(alma, name) for name in keys}
+
+    def timed(name):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = originals[name](*args, **kwargs)
+            rec[keys[name]] += time.perf_counter() - t0
+            if name == '_model_physics':
+                rec['geos'].append(args[0])
+            return out
+        return call
+
+    for name in keys:
+        setattr(alma, name, timed(name))
+    try:
+        yield rec
+    finally:
+        for name, fn in originals.items():
+            setattr(alma, name, fn)
+
+
 def alma_host_precompute(device):
     """The ALMA configuration through the port's entry points: a seeded
     sub-pixel ensemble of polarized ray constants, compacted in both
-    layouts."""
+    layouts. Returns (predictor, crts, t_frames, the record of the host
+    traces: alma_recorder's)."""
     from bhnerf_tpu_torch import alma, constants
     from bhnerf_tpu_torch.models.fields import NeRFPredictor
     from bhnerf_tpu_torch.train.step import compact_ensemble_args
 
     t0 = time.perf_counter()
-    rts = alma.get_raytracing_args(
-        np.deg2rad(60.0), ALMA_MODEL['spin'], ALMA_MODEL,
-        stokes=('I', 'Q', 'U'), rot_angle=np.deg2rad(32.2 + 20.0),
-        num_subpixel_rays=ALMA_RAYS, rng=np.random.default_rng(0),
-        device=device)
+    with alma_recorder() as host:
+        rts = alma.get_raytracing_args(
+            np.deg2rad(60.0), ALMA_MODEL['spin'], ALMA_MODEL,
+            stokes=('I', 'Q', 'U'), rot_angle=np.deg2rad(32.2 + 20.0),
+            num_subpixel_rays=ALMA_RAYS, rng=np.random.default_rng(0),
+            device=device)
     t_host = time.perf_counter() - t0
+    host['total_s'] = t_host
     rmax = ALMA_MODEL['fov_M'] / 2
     predictor = NeRFPredictor(
         scale=rmax, rmin=float(constants.isco_pro(ALMA_MODEL['spin'])),
@@ -614,7 +681,7 @@ def alma_host_precompute(device):
     # the observation: NT frames over the fit's 103-minute training span
     t_frames = (ALMA_MODEL['t_start_obs']
                 + np.linspace(0.0, 103.0 / 60.0, NT)).astype(np.float32)
-    return predictor, crts, t_frames
+    return predictor, crts, t_frames, host
 
 
 def alma_kernel_checks(predictor, crts, t_frames, device):
@@ -891,13 +958,14 @@ def alma_native_reduce_check(predictor, crt, t_frames, movie, device):
 def alma_phase(kernels, device):
     """The ALMA polarized-lightcurve fit at full width through the port's
     entry points; fills the ALMA keys of the JSON kernel entries and
-    returns the summary of the chunked 'lc' run."""
+    returns the summary of the chunked 'lc' run and the host precompute
+    (alma_recorder's record, the predictor and the frame times)."""
     import torch
     from bhnerf_tpu_torch import units
     from bhnerf_tpu_torch.train import step
     from bhnerf_tpu_torch.train.optimizer import TrainStep
 
-    predictor, crts, t_frames = alma_host_precompute(device)
+    predictor, crts, t_frames, host = alma_host_precompute(device)
     checks = alma_kernel_checks(predictor, crts, t_frames, device)
     movie = alma_target(predictor, crts, t_frames, device)
     lightcurve = movie.sum(axis=(-1, -2))
@@ -955,7 +1023,7 @@ def alma_phase(kernels, device):
             entry['alma_stash_ms'] = native['ms']['fwd_stash']
     for entry, count in zip(kernels, chunked_launches):
         entry.setdefault('scan', {})['alma_lc_chunked'] = count
-    return chunked
+    return chunked, dict(host, predictor=predictor, t_frames=t_frames)
 
 
 def recovery_hotspot():
@@ -1316,13 +1384,15 @@ def fit_script_phase(kernels, device):
     kernels against their plain versions (float32) on each inclination's
     compacted ray constants, at the training batch and at the 20-frame
     batch of the datafit renders; chi2_df over the inclinations (both
-    cells at step FIT_STEPS); then --resume of the first run to
+    cells at step FIT_STEPS) from host tables and, beside it, from tables
+    of the device tracer (backend='device'); then --resume of the first run to
     FIT_RESUME_STEPS, which must continue from FIT_STEPS. Fills the
     fit_sweep block of the JSON kernel entries and returns the phase's
     summary."""
     import tempfile
     import torch
     from bhnerf_tpu_torch import alma, config, units
+    from bhnerf_tpu_torch.geodesics import integrator
     from bhnerf_tpu_torch.ops import fused
     from bhnerf_tpu_torch.scripts import fit_alma_lp_apr11_sgra_flare as fit
     from bhnerf_tpu_torch.train.logging import MemoryWriter
@@ -1416,6 +1486,37 @@ def fit_script_phase(kernels, device):
                         for inc, c in zip(df.index, chi2[:, 0])))
         if chi2.shape != (len(FIT_INCS), 1) or not np.isfinite(chi2).all():
             raise RuntimeError(f'chi2_df: {df}')
+        # the same chi^2 with the tables traced by the device tracer: one
+        # launch a grid point (an inclination of the one seed), the whole
+        # sub-pixel ensemble in it whatever num_subrays is
+        integrator.trace_rays.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        df_dev = alma.chi2_df(
+            list(FIT_INCS), cfg.model.spin, [FIT_SEED],
+            dict(cfg.model.asdict(), **trace),
+            os.path.join(opt_cfg.checkpoint_dir, fit.RUN_NAME),
+            units.Quantity(train['t'], 'hr'), train['data'],
+            sigma=np.asarray(opt_cfg.sigma),
+            rot_angle=np.deg2rad(cfg.preprocess.de_rot_angle + 20.0),
+            num_subpixel_rays=cfg.model.num_subrays,
+            checkpoint_name=f'checkpoint_{FIT_STEPS}', backend='device',
+            device=device)
+        torch.cuda.synchronize()
+        chi2_dev_s = time.perf_counter() - t0
+        chi2_dev_launches = integrator.trace_rays.launches
+        chi2_dev = df_dev.values
+        log(f"fit script chi2_df(backend='device') at step {FIT_STEPS} "
+            f'({chi2_dev_s:.1f} s against {chi2_s:.1f} s on the host, '
+            f'{chi2_dev_launches} tracer launches): '
+            + ', '.join(f'inc {inc:g}: {c:.6g} (host {h:.6g}, '
+                        f'{100 * (c - h) / h:+.3f}%)' for inc, c, h in
+                        zip(df_dev.index, chi2_dev[:, 0], chi2[:, 0])))
+        if chi2_dev.shape != chi2.shape \
+                or not np.isfinite(chi2_dev).all() \
+                or chi2_dev_launches != len(FIT_INCS):
+            raise RuntimeError(f"chi2_df(backend='device'): {df_dev}, "
+                               f'{chi2_dev_launches} launches')
 
         opt_cfg.hparams.num_iters = FIT_RESUME_STEPS
         resumed, resume_s, resume_launches = sweep(list(FIT_INCS[:1]),
@@ -1440,7 +1541,11 @@ def fit_script_phase(kernels, device):
                for name, c in checks.items()}}
     return {'runs': len(records), 'steps': FIT_STEPS, 'sweep_s': sweep_s,
             'resume_s': resume_s, 'chi2_s': chi2_s, 'phase_s': phase_s,
-            'chi2': {str(k): float(v) for k, v in zip(df.index, chi2[:, 0])}}
+            'chi2': {str(k): float(v) for k, v in zip(df.index, chi2[:, 0])},
+            'chi2_device_s': chi2_dev_s,
+            'chi2_device_launches': chi2_dev_launches,
+            'chi2_device': {str(k): float(v)
+                            for k, v in zip(df_dev.index, chi2_dev[:, 0])}}
 
 
 def eht_observation(geos, hotspot, npix, device):
@@ -1728,6 +1833,514 @@ def eht_phase(kernels, geos, device):
     return {'npix64_dense_bf16': fit, 'npix128_f32': production}
 
 
+def trace_state(alpha, beta, spin, device):
+    """initial_state of the float32 trace at inclination 60 deg for the
+    screen points (alpha, beta), on the card: (state0, lam, eta)."""
+    import torch
+    from bhnerf_tpu_torch.geodesics import integrator
+    state0, lam, eta = integrator.initial_state(
+        np.ravel(np.asarray(alpha, np.float32)),
+        np.ravel(np.asarray(beta, np.float32)), spin, np.deg2rad(60.0),
+        1000.0, torch.float32)
+    return (integrator.RayState(*(x.to(device) for x in state0)),
+            lam.to(device), eta.to(device))
+
+
+def screen(npix, fov=FOV):
+    """The regular npix x npix screen grid over the field of view."""
+    axis = np.linspace(-fov / 2, fov / 2, npix)
+    return np.meshgrid(axis, axis, indexing='ij')
+
+
+def as_table(samples):
+    """(r, theta, t, phi, pm_r, pm_th) of the tracer's samples, (rays,
+    ngeo) each, as trace_geodesics forms them: 1/u and arccos(c) in
+    float32, t - t_c folded in float64, phi and the signs as recorded."""
+    s = {k: v.cpu().numpy().T for k, v in samples.items()}
+    return (1.0 / s['u'], np.arccos(np.clip(s['c'], -1.0, 1.0)),
+            s['t'].astype(np.float64) - s['t_c'].astype(np.float64),
+            s['phi'], s['pm_r'], s['pm_th'])
+
+
+def geos_table(geos):
+    """(r, theta, t, phi, pm_r, pm_th) of a Geodesics, (rays, ngeo) each,
+    and tau_final."""
+    return (tuple(getattr(geos, f).reshape(-1, geos.ngeo) for f in
+                  ('r', 'theta', 't', 'phi', 'pm_r', 'pm_th')),
+            np.ravel(geos.tau_final))
+
+
+def trace_gate(label, test, truth, tau_test, tau_truth, n_fine, fov,
+               rmax=None, tau_max=4.0):
+    """The drive's gate (drive_device_geos.compare) on a float32 table
+    against another trace of the same rays, (r, theta, t, phi, pm_r,
+    pm_th) of (rays, ngeo) each, with the domain r <= fov, and phi and the
+    momentum signs beside it (compare_phi_signs: phi under t's bars, the
+    signs equal on every sample of the rays whose terminal Mino time
+    agrees). With rmax, for a model whose emission domain r <= rmax is
+    narrower than its field of view, the domain of the gate is r <= rmax
+    for every ray and r <= fov for the rays whose terminal Mino time
+    agrees: a ray whose pass-1 termination lands one fine step (h =
+    tau_max / n_fine) apart samples the same geodesic at Mino times up to
+    h apart, which moves t at radius r by up to ~r^2 h (1.6 M at r = 40
+    and n_fine 4096, 0.4 M at r = 20), and that is no error of the
+    geodesic (flip_report shows where such a ray stops). Logs the numbers
+    and the flipped rays; returns (ok, dict)."""
+    from bhnerf_tpu_torch.scripts.drive_device_geos import (
+        compare, compare_phi_signs, describe, describe_phi_signs)
+    tau_test, tau_truth = np.ravel(tau_test), np.ravel(tau_truth)
+    same = tau_test == tau_truth
+    steps = np.abs(tau_test.astype(np.float64) - tau_truth) * n_fine / tau_max
+
+    def gate(rays, domain):
+        q = compare(tuple(x[rays] for x in test[:3]),
+                    tuple(x[rays] for x in truth[:3]), domain)
+        q_rest = compare_phi_signs(test[0][rays],
+                                   tuple(x[rays] for x in test[3:]),
+                                   tuple(x[rays] for x in truth[3:]),
+                                   same[rays], domain)
+        return ({**q, **q_rest, 'ok': q['ok'] and q_rest['ok']},
+                f'{describe(q)}; {describe_phi_signs(q_rest)}')
+
+    every = np.ones_like(same)
+    out, text = gate(every, fov if rmax is None else rmax)
+    out.update(same_tau_final=float(same.mean()),
+               flipped_rays=int((~same).sum()),
+               max_flip_steps=float(steps.max()))
+    domain = '' if rmax is None else f' (domain r <= {rmax:g})'
+    line = (f'{label}{domain}: {text}; tau_final the same on '
+            f'{100 * same.mean():.2f}% of the rays, the others '
+            f'{int((~same).sum())} rays at most {steps.max():.2f} fine '
+            f'steps apart')
+    if rmax is not None:
+        q_same, text_same = gate(same, fov)
+        out['same_tau_to_fov'] = q_same
+        out['all_to_fov_in_domain_max_dt'] = compare(
+            test[:3], truth[:3], fov)['in_domain_max_dt']
+        out['ok'] = out['ok'] and q_same['ok']
+        line += (f'; to r <= {fov:g} on the rays of the same tau_final: '
+                 f'{text_same}; on all rays max |dt| '
+                 f'{out["all_to_fov_in_domain_max_dt"]:.2e}')
+    log(line)
+    return out['ok'], out
+
+
+def rk4_steps(tau_final, samples, n_fine, tau_max=4.0, substeps=8,
+              first_substeps=512):
+    """RK4 steps the trace of each ray takes, read off its output: pass 1
+    exactly (a ray that stopped at step i took i + 1 steps, one that did
+    not n_fine); pass 2 a segment's substeps wherever the ray's record
+    moved over the segment (a frozen ray's does not), so at most one
+    segment too many."""
+    h = np.float32(tau_max / n_fine)
+    tau = tau_final.cpu().numpy()
+    pass1 = np.where(tau < np.float32(tau_max), np.rint(tau / h) + 1,
+                     n_fine)
+    records = np.stack([v.cpu().numpy() for v in samples.values()])
+    moved = (records[:, 1:] != records[:, :-1]).any(axis=0)
+    nsub = np.full(moved.shape[0], substeps)
+    nsub[0] = first_substeps
+    return pass1 + (nsub[:, None] * moved).sum(axis=0)
+
+
+def trace_bound(steps, ngeo):
+    """(bound_ms, bound_by, GFLOP) of one trace whose rays take `steps` RK4
+    steps: RK4_OPS float32 operations a step at FP32_FLOPS, against the
+    bytes of each ray's initial state and constants (9 floats) read once
+    and its samples (7 floats each) and terminal time written once."""
+    ops = RK4_OPS * float(np.sum(steps))
+    nbytes = 4 * len(steps) * (9 + 1 + 7 * ngeo)
+    t_ops, t_bytes = ops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            'operations' if t_ops >= t_bytes else 'bytes', ops / 1e9)
+
+
+def trace_kernel_check(label, alpha, beta, spin, n_fine, fov, device,
+                       rmax=None):
+    """The tracer kernel against its plain version (the float32 torch loop)
+    on the same inputs on the card, for the screen points (alpha, beta) at
+    NGEO samples and n_fine fine steps, on all seven fields it writes: the
+    drive's gate with the domain r <= fov on (r, theta, t), phi under t's
+    bars and the momentum signs equal on every sample of the rays of the
+    same terminal Mino time (trace_gate, with rmax for a model whose
+    emission domain is narrower than fov), the gate's p90 bars of dr/r
+    (1e-4) and dtheta (1e-3) held at the 99th percentile, far field
+    included, median |dt| and |dphi| < 2e-4, and the same terminal Mino
+    time on >= 95% of the rays; the kernel's
+    and the plain version's ms and the bound. Returns a dict of the
+    numbers."""
+    import torch
+    from bhnerf_tpu_torch.geodesics import integrator
+
+    state0, lam, eta = trace_state(alpha, beta, spin, device)
+    kw = dict(r_o=1000.0, n_fine=n_fine, ngeo=NGEO)
+    tau_k, s_k = integrator.trace_rays(state0, spin, lam, eta, **kw)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    tau_p, s_p = integrator.trace_rays_plain(state0, spin, lam, eta, **kw)
+    stop.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(stop)
+    ok, q = trace_gate(
+        f'device trace kernel against plain, {label}, {lam.numel()} rays '
+        f'x {NGEO}, n_fine {n_fine}', as_table(s_k), as_table(s_p),
+        tau_k.cpu().numpy(), tau_p.cpu().numpy(), n_fine, fov, rmax)
+    ms = cuda_ms(lambda: integrator.trace_rays(state0, spin, lam, eta, **kw))
+    steps = rk4_steps(tau_k, s_k, n_fine)
+    b_ms, b_by, gflop = trace_bound(steps, NGEO)
+    log(f'device trace: kernel against plain, {label}: p99 dr/r '
+        f'{q["p99_dr_rel"]:.2e} (< 1e-4), dtheta {q["p99_dtheta"]:.2e} '
+        f'(< 1e-3); median |dt| {q["median_dt"]:.2e}, |dphi| '
+        f'{q["median_dphi"]:.2e} (< 2e-4), '
+        f'the same tau_final on {100 * q["same_tau_final"]:.2f}% of the '
+        f'rays (>= 95%); kernel {ms:.3f} ms, plain {plain_ms:.1f} ms; '
+        f'{int(steps.sum())} RK4 steps (max {int(steps.max())} a ray), '
+        f'bound {b_ms:.3f} ms ({b_by}: {gflop:.2f} GFLOP at '
+        f'{FP32_FLOPS / 1e12:.0f} TFLOP/s), kernel at '
+        f'{100 * b_ms / ms:.1f}% of it')
+    if not ok or q['p99_dr_rel'] >= 1e-4 or q['p99_dtheta'] >= 1e-3 \
+            or q['median_dt'] >= 2e-4 or q['median_dphi'] >= 2e-4 \
+            or q['same_tau_final'] < 0.95:
+        raise RuntimeError(f'the tracer kernel disagrees with its plain '
+                           f'version ({label})')
+    return {'rays': int(lam.numel()), 'ngeo': NGEO, 'n_fine': n_fine,
+            'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b_ms,
+            'bound_by': b_by, 'rk4_steps': int(steps.sum()), **q}
+
+
+def pass1_u_plain(alpha, beta, spin, n_fine, steps, dtype, device,
+                  tau_max=4.0, r_o=1000.0, r_stop_factor=1.05):
+    """u after each of the first `steps` pass-1 steps of the plain version
+    (integrator._rk4_step in a torch loop, as terminal_mino_time steps a
+    ray short of its stop) in `dtype` on `device`, for the screen points
+    (alpha, beta) at inclination 60 deg: (steps, rays)."""
+    import torch
+    from bhnerf_tpu_torch.geodesics import integrator
+    state0, lam, eta = integrator.initial_state(
+        np.ravel(alpha), np.ravel(beta), spin, np.deg2rad(60.0), r_o, dtype)
+    s = integrator.RayState(*(x.to(device) for x in state0))
+    lam, eta = lam.to(device), eta.to(device)
+    h = torch.tensor(tau_max / n_fine, dtype=dtype, device=device)
+    u_clip, _, u_floor = integrator._stop_constants(spin, r_o, r_stop_factor)
+    us = []
+    for _ in range(steps):
+        s = integrator._rk4_step(s, h, spin, lam, eta, u_clip, u_floor)
+        us.append(s.u)
+    return torch.stack(us).cpu().numpy()
+
+
+def pass1_u_kernel(alpha, beta, spin, n_fine, k, device, tau_max=4.0):
+    """u of the kernel's pass 1 after k steps, for one screen point: pass 2
+    of a launch with tau_max = k h, n_fine = k, ngeo 2 and first_substeps
+    k takes the same k steps of the same h (a power of two, so k h / k is
+    h) from the same state, with the escape stop moved to u = -inf so
+    that pass 1 runs on. Pass 2 differs only in its freeze test and in
+    its floor on u after a step (u_floor = u_escape / 2), and neither acts
+    on a ray short of its stop nor on one that stops at the escape radius
+    by a near tie. nan where pass 1 still stopped (at the horizon: moving
+    that stop would move the clamp of the right-hand side with it)."""
+    from bhnerf_tpu_torch.geodesics import integrator
+    h = tau_max / n_fine
+    state0, lam, eta = trace_state(alpha, beta, spin, device)
+    stops = integrator._stop_constants
+    integrator._stop_constants = lambda *a: (stops(*a)[0], -np.inf,
+                                             stops(*a)[2])
+    try:
+        tau, samples = integrator.trace_rays(
+            state0, spin, lam, eta, tau_max=k * h, n_fine=k, ngeo=2,
+            first_substeps=k)
+    finally:
+        integrator._stop_constants = stops
+    u = float(samples['u'][1, 0])
+    return u if float(tau[0]) == np.float32(k * h) else float('nan')
+
+
+def flip_report(label, alpha, beta, tau_dev, tau_host, spin, n_fine, device,
+                tau_max=4.0, r_o=1000.0, r_stop_factor=1.05):
+    """Where the rays whose terminal Mino time differs between the float32
+    trace (tau_dev) and the host float64 one (tau_host) stop. alpha, beta:
+    the host's screen points of the table, flattened. For each such ray,
+    with i the earlier of the two stops (the 0-based pass-1 step whose
+    result crossed), logs u after steps i - 1, i and i + 1 of the kernel,
+    of its plain version (the float32 torch loop on the card) and of the
+    host float64 loop, beside u_escape and u_clip, each as its distance
+    to the stop it crosses in float32 ulps of that stop. A step past a
+    version's own stop is one that its trace never takes. A flip is the
+    one stop comparison landing on either side of a near tie: the check
+    is that after step i the u of every version that shows it (the
+    kernel's is hidden at the horizon, see pass1_u_kernel) lies within
+    1e-4 of the stop, relative (the gate's accuracy of r), where a fine
+    step moves u by
+    about h near the escape radius (|du/dtau| -> 1 far out), the stop's
+    own size. Returns (ok, list of dicts)."""
+    import torch
+    from bhnerf_tpu_torch.geodesics import integrator
+    h = np.float32(tau_max / n_fine)
+    tau_dev, tau_host = np.ravel(tau_dev), np.ravel(tau_host)
+    rays = np.flatnonzero(tau_dev != tau_host)
+    u_clip, u_escape, _ = (np.float32(x) for x in integrator._stop_constants(
+        spin, r_o, r_stop_factor))
+    if not len(rays):
+        return True, []
+    first = np.rint(np.minimum(tau_dev[rays], tau_host[rays]) / h).astype(int)
+    n_steps = int(first.max()) + 2
+    alpha, beta = np.ravel(alpha)[rays], np.ravel(beta)[rays]
+    plain = pass1_u_plain(alpha.astype(np.float32), beta.astype(np.float32),
+                          spin, n_fine, n_steps, torch.float32, device)
+    host = pass1_u_plain(alpha, beta, spin, n_fine, n_steps, torch.float64,
+                         'cpu')
+    ok, out = True, []
+    for j, (ray, i) in enumerate(zip(rays, first)):
+        kernel = [pass1_u_kernel(alpha[j], beta[j], spin, n_fine, k, device)
+                  for k in (i, i + 1, i + 2)]
+        versions = {'kernel': kernel,
+                    'plain f32': [float(x) for x in plain[i - 1:i + 2, j]],
+                    'host f64': [float(x) for x in host[i - 1:i + 2, j]]}
+        stop = (u_escape if versions['host f64'][1] ** 2 < u_escape * u_clip
+                else u_clip)
+        ulp = float(np.spacing(stop))
+        near = {k: abs(v[1] - float(stop)) / float(stop)
+                for k, v in versions.items() if np.isfinite(v[1])}
+        ray_ok = ('host f64' in near and 'plain f32' in near
+                  and all(x < 1e-4 for x in near.values()))
+        ok = ok and ray_ok
+        log(f'{label}: ray {ray} stops at step {int(round(tau_dev[ray] / h))} '
+            f'on the card, {int(round(tau_host[ray] / h))} on the host; '
+            f'u_escape {float(u_escape):.9e}, u_clip {float(u_clip):.9e}; '
+            f'u after steps {i - 1} / {i} / {i + 1}, in float32 ulps '
+            f'({ulp:.3e}) from the stop it crosses: '
+            + '; '.join(f'{k} ' + ' / '.join(f'{(x - float(stop)) / ulp:+.1f}'
+                                             for x in v)
+                        for k, v in versions.items())
+            + f'; after step {i} within {max(near.values()):.1e} of it, '
+              f'relative (< 1e-4)')
+        out.append({'ray': int(ray), 'step': int(i), 'stop': float(stop),
+                    'ulp': ulp, 'u': versions, 'ok': ray_ok})
+    return ok, out
+
+
+def trace_kernel_time(label, alpha, beta, spin, n_fine, device):
+    """The kernel's ms (CUDA events) on a screen, its bound, and the
+    latency floor: the kernel alone on the ray that takes the most RK4
+    steps (no table can be traced faster than its longest ray)."""
+    from bhnerf_tpu_torch.geodesics import integrator
+    state0, lam, eta = trace_state(alpha, beta, spin, device)
+    kw = dict(r_o=1000.0, n_fine=n_fine, ngeo=NGEO)
+    tau, samples = integrator.trace_rays(state0, spin, lam, eta, **kw)
+    ms = cuda_ms(lambda: integrator.trace_rays(state0, spin, lam, eta, **kw))
+    steps = rk4_steps(tau, samples, n_fine)
+    i = int(np.argmax(steps))
+    one = integrator.RayState(*(x[i:i + 1].contiguous() for x in state0))
+    floor_ms = cuda_ms(lambda: integrator.trace_rays(
+        one, spin, lam[i:i + 1].contiguous(), eta[i:i + 1].contiguous(),
+        **kw))
+    b_ms, b_by, gflop = trace_bound(steps, NGEO)
+    log(f'device trace {label}: {lam.numel()} rays x {NGEO}, n_fine '
+        f'{n_fine}, one launch: kernel {ms:.3f} ms; {int(steps.sum())} RK4 '
+        f'steps, bound {b_ms:.3f} ms ({b_by}: {gflop:.2f} GFLOP), kernel at '
+        f'{100 * b_ms / ms:.1f}% of it; the longest ray alone '
+        f'({int(steps[i])} steps) {floor_ms:.3f} ms, kernel at '
+        f'{100 * floor_ms / ms:.1f}% of that floor')
+    return {'rays': int(lam.numel()), 'n_fine': n_fine, 'ms': ms,
+            'bound_ms': b_ms, 'bound_by': b_by, 'rk4_steps': int(steps.sum()),
+            'latency_floor_ms': floor_ms, 'longest_ray_steps': int(steps[i])}
+
+
+def device_trace_phase(t3_geos, t3_s, alma_host, eht, device):
+    """The float32 device tracer: the kernel against its plain version at
+    the drive's spin and on the main path's inputs (the ALMA ensemble);
+    the float32 tables against the host float64 ones of the earlier
+    phases (the Tutorial-3 table, the four ALMA tables of the same seed)
+    and in the drive (bhnerf_tpu_torch.scripts.drive_device_geos); the
+    hotspot lightcurve from the device table through image_plane_dynamics;
+    20 ALMA 'lc' steps on the device-traced ensemble; kernel times and the
+    wall seconds against the host's. Returns the kernel's JSON entry and
+    the phase's summary."""
+    import torch
+    from bhnerf_tpu_torch import alma, emission, units
+    from bhnerf_tpu_torch.geodesics import image_plane_geos, integrator
+    from bhnerf_tpu_torch.scripts import drive_device_geos as drive
+    from bhnerf_tpu_torch.train.optimizer import TrainStep
+    from bhnerf_tpu_torch.train.step import compact_ensemble_args
+
+    t_phase = time.perf_counter()
+    check_094 = trace_kernel_check(
+        f'{TRACE_CHECK_RAYS}x{TRACE_CHECK_RAYS} spin 0.94',
+        *screen(TRACE_CHECK_RAYS), 0.94, TRACE_CHECK_N_FINE, FOV, device)
+
+    # the Tutorial-3 table on the card against the host one
+    integrator.trace_rays.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g32 = image_plane_geos(spin=SPIN, inclination=np.deg2rad(60.0),
+                           alpha_range=(-FOV / 2, FOV / 2),
+                           beta_range=(-FOV / 2, FOV / 2), ngeo=NGEO,
+                           num_alpha=NUM_RAYS, num_beta=NUM_RAYS,
+                           n_fine=N_FINE, backend='device', device=device)
+    t3_dev_s = time.perf_counter() - t0
+    t3_launches = integrator.trace_rays.launches
+    ok, _ = trace_gate(
+        f'device trace Tutorial-3 {NUM_RAYS}x{NUM_RAYS}x{NGEO} (n_fine '
+        f'{N_FINE}) against the host table', geos_table(g32)[0],
+        geos_table(t3_geos)[0], g32.tau_final, t3_geos.tau_final, N_FINE,
+        FOV)
+    log(f'device trace Tutorial-3: trace_geodesics {t3_dev_s:.3f} s '
+        f'({t3_launches} launch) against {t3_s:.2f} s on the host')
+    flips_ok, flips = flip_report('device trace Tutorial-3 flip',
+                                  t3_geos.alpha, t3_geos.beta, g32.tau_final,
+                                  t3_geos.tau_final, SPIN, N_FINE, device)
+    if not (ok and flips_ok) or t3_launches != 1:
+        raise RuntimeError('device trace: the Tutorial-3 table fails the '
+                           'gate')
+
+    # the main path: the ALMA ensemble through get_raytracing_args, one
+    # launch for all four tables, from the seed of the host ensemble
+    integrator.trace_rays.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with alma_recorder() as dev:
+        rts = alma.get_raytracing_args(
+            np.deg2rad(60.0), ALMA_MODEL['spin'], ALMA_MODEL,
+            stokes=('I', 'Q', 'U'), rot_angle=np.deg2rad(32.2 + 20.0),
+            num_subpixel_rays=ALMA_RAYS, rng=np.random.default_rng(0),
+            backend='device', device=device)
+    torch.cuda.synchronize()
+    dev['total_s'] = time.perf_counter() - t0
+    launches = integrator.trace_rays.launches
+    fov_alma = float(ALMA_MODEL['fov_M'])
+    flips = {'tutorial3': flips}
+    for v, (gd, gh) in enumerate(zip(dev['geos'], alma_host['geos'])):
+        if not (np.array_equal(gd.alpha, gh.alpha.astype(np.float32))
+                and np.array_equal(gd.beta, gh.beta.astype(np.float32))):
+            raise RuntimeError(f'device trace: ALMA variant {v} has another '
+                               f'screen than the host ensemble')
+        ok, _ = trace_gate(
+            f'device trace ALMA variant {v} (the host screen) against the '
+            f'host table', geos_table(gd)[0], geos_table(gh)[0],
+            gd.tau_final, gh.tau_final, ALMA_MODEL['n_fine'], fov_alma,
+            rmax=fov_alma / 2)
+        flips_ok, flips[f'alma_{v}'] = flip_report(
+            f'device trace ALMA variant {v} flip', gh.alpha, gh.beta,
+            gd.tau_final, gh.tau_final, ALMA_MODEL['spin'],
+            ALMA_MODEL['n_fine'], device)
+        if not (ok and flips_ok):
+            raise RuntimeError(f'device trace: ALMA variant {v} fails the '
+                               f'gate')
+    log(f'device trace ALMA get_raytracing_args({ALMA_RAYS} variants): '
+        f'{dev["total_s"]:.2f} s (trace {dev["trace_s"]:.3f} s in '
+        f'{launches} launch, physics {dev["physics_s"]:.2f} s) against '
+        f'{alma_host["total_s"]:.2f} s on the host (trace '
+        f'{alma_host["trace_s"]:.2f} s, physics '
+        f'{alma_host["physics_s"]:.2f} s)')
+    if launches != 1 or len(dev['geos']) != ALMA_RAYS:
+        raise RuntimeError(f'device trace: the ensemble took {launches} '
+                           f'launches for {len(dev["geos"])} tables')
+
+    summary = {'tutorial3': {'device_s': t3_dev_s, 'host_s': t3_s},
+               'flips': flips,
+               'alma_ensemble': {
+                   'device': {k: dev[k] for k in
+                              ('total_s', 'trace_s', 'physics_s')},
+                   'host': {k: alma_host[k] for k in
+                            ('total_s', 'trace_s', 'physics_s')}}}
+    # the kernel against its plain version on the main path's inputs: the
+    # ensemble's screens at its fine steps
+    alpha_ens = np.stack([g.alpha for g in dev['geos']])
+    beta_ens = np.stack([g.beta for g in dev['geos']])
+    check = trace_kernel_check(
+        f'the ALMA ensemble {ALMA_RAYS}x{NUM_RAYS}x{NUM_RAYS}', alpha_ens,
+        beta_ens, ALMA_MODEL['spin'], ALMA_MODEL['n_fine'], fov_alma, device,
+        rmax=fov_alma / 2)
+    entry = {'name': 'geodesic_trace', 'route': 'cuda',
+             'source': 'bhnerf_tpu_torch/ops/csrc/geodesic_trace.cu',
+             'replaces': 'bhnerf_tpu/geodesics/integrator.py:123-215 (XLA '
+                         'lax.scan)',
+             'launches': launches, 'max_abs_err': check['in_domain_max_dt'],
+             'max_abs_err_of': f't in M where r <= {fov_alma / 2:g} M',
+             'max_rel_err_phi': check['in_domain_max_dphi'],
+             'max_rel_err_phi_of': (f'phi over max(|phi|, 1) where r <= '
+                                    f'{fov_alma / 2:g} M'),
+             'sign_mismatches': (check['pm_r_mismatches']
+                                 + check['pm_th_mismatches']),
+             'sign_mismatches_of': ('pm_r and pm_th samples of the rays of '
+                                    'the same tau_final'),
+             'ms': check['ms'], 'plain_ms': check['plain_ms'],
+             'bound_ms': check['bound_ms'], 'bound_by': check['bound_by'],
+             'library_ms': None, 'check': check, 'check_spin_0.94': check_094}
+    summary['drive'] = drive.drive(NUM_RAYS, device, log)
+    if not summary['drive']['ok']:
+        raise RuntimeError('device trace: the drive fails the gate')
+
+    # the hotspot's lightcurve from both Tutorial-3 tables
+    hotspot = recovery_hotspot()
+    t_frames = units.Quantity(np.linspace(0.0, 1.0, NT), 'hr')
+    lcs = []
+    for g in (t3_geos, g32):
+        movie = emission.image_plane_dynamics(
+            hotspot, g, g.keplerian_omega(), t_frames,
+            -float(g.r_o + FOV / 4), t_start_obs=t_frames[0], device=device)
+        lcs.append(movie.sum(dim=(-1, -2)).cpu().numpy())
+    lc_rel = float(np.abs(lcs[1] - lcs[0]).max() / np.abs(lcs[0]).mean())
+    log(f'device trace: recovery hotspot lightcurve ({NT} frames) from the '
+        f'device table against the host one: max difference '
+        f'{100 * lc_rel:.4f}% of the mean flux (< 1%)')
+    if not lc_rel < 1e-2:
+        raise RuntimeError('device trace: the lightcurve strays')
+    summary['lightcurve_max_rel'] = lc_rel
+
+    # 'lc' steps on the device-traced ensemble, through both fused kernels
+    predictor, t_alma = alma_host['predictor'], alma_host['t_frames']
+    crts = compact_ensemble_args(rts, predictor, layout='gather')
+    movie = alma_target(predictor, {'gather': crts}, t_alma, device)
+    lc_step = TrainStep.image(units.Quantity(t_alma, 'hr'),
+                              movie.sum(axis=(-1, -2)), predictor,
+                              sigma=np.asarray(ALMA_SIGMA), dtype='lc',
+                              fused=True, device=device)
+    alma_train("ALMA 'lc' fit on the device-traced ensemble, gather layout",
+               lc_step, crts, predictor, device, STEPS)
+
+    # kernel times: the drive's table at the reference's n_fine, the
+    # production EHT table, the ALMA ensemble in one launch
+    spin_drive = 0.94
+    times = {
+        'drive_64': trace_kernel_time(
+            f'{NUM_RAYS}x{NUM_RAYS} spin {spin_drive}', *screen(NUM_RAYS),
+            spin_drive, 8192, device),
+        'eht_128': trace_kernel_time(
+            f'{EHT_NPIX_PRODUCTION}x{EHT_NPIX_PRODUCTION} spin {SPIN}',
+            *screen(EHT_NPIX_PRODUCTION), SPIN, N_FINE, device),
+        'alma_ensemble': trace_kernel_time(
+            f'ALMA ensemble {ALMA_RAYS}x{NUM_RAYS}x{NUM_RAYS}',
+            alpha_ens, beta_ens, ALMA_MODEL['spin'], ALMA_MODEL['n_fine'],
+            device)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g128 = image_plane_geos(spin=SPIN, inclination=np.deg2rad(60.0),
+                            alpha_range=(-FOV / 2, FOV / 2),
+                            beta_range=(-FOV / 2, FOV / 2), ngeo=NGEO,
+                            num_alpha=EHT_NPIX_PRODUCTION,
+                            num_beta=EHT_NPIX_PRODUCTION, n_fine=N_FINE,
+                            backend='device', device=device)
+    eht_dev_s = time.perf_counter() - t0
+    eht_host_s = eht['npix128_f32']['geodesics_s']
+    log(f'device trace {EHT_NPIX_PRODUCTION}x{EHT_NPIX_PRODUCTION}x{NGEO} '
+        f'(n_fine {N_FINE}): trace_geodesics {eht_dev_s:.3f} s against '
+        f'{eht_host_s:.2f} s on the host')
+    if not np.isfinite(g128.r).all():
+        raise RuntimeError('device trace: non-finite 128x128 table')
+    summary['eht_128'] = {'device_s': eht_dev_s, 'host_s': eht_host_s}
+    summary['kernel'] = times
+    summary['phase_s'] = time.perf_counter() - t_phase
+    log(f'device trace phase: {summary["phase_s"]:.1f} s')
+    entry.update({'alma_ensemble': times['alma_ensemble'],
+                  'drive_64_n_fine_8192': times['drive_64'],
+                  'eht_128': times['eht_128'],
+                  'tutorial3_launches': t3_launches})
+    return entry, summary
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1735,6 +2348,7 @@ def main():
               'false); this script runs only on the GPU', file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    from bhnerf_tpu_torch.geodesics import integrator
     from bhnerf_tpu_torch.ops import _build, fused
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1745,38 +2359,49 @@ def main():
     log(f'python {sys.version.split()[0]}, torch {torch.__version__}, '
         f'CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}')
 
+    # one nvcc a source, all started together
     t0 = time.perf_counter()
-    fused._lib()
-    log(f'build: fused_render.cu built and loaded in '
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for job in [pool.submit(fused._lib), pool.submit(integrator._lib)]:
+            job.result()
+    log(f'build: fused_render.cu and geodesic_trace.cu built and loaded in '
         f'{time.perf_counter() - t0:.1f} s')
-    ptxas = _build.build_dir('fused_render') / 'fused_render.ptxas.log'
-    if ptxas.exists():
+    for name in ('fused_render', 'geodesic_trace'):
+        ptxas = _build.build_dir(name) / f'{name}.ptxas.log'
+        if not ptxas.exists():
+            continue
         for line in ptxas.read_text().splitlines():
-            entry = re.search(r'(fused_render_[a-z_]+_kernel)(ILb1)?', line)
+            entry = re.search(r'((fused_render|geodesic_trace)_[a-z_]*'
+                              r'kernel)(ILb1)?', line)
             if 'Compiling entry' in line and entry:
                 log(f'  ptxas: {entry.group(1)}'
-                    f'{" (bf16)" if entry.group(2) else ""}')
+                    f'{" (bf16)" if entry.group(3) else ""}')
             elif 'registers' in line or 'spill' in line:
                 log(f'  ptxas: {line.strip()}')
 
-    geos, predictor, crt, t_frames = host_precompute(device)
+    geos, predictor, crt, t_frames, geos_s = host_precompute(device)
     kernels = kernel_checks(predictor, crt, t_frames, device)
     launches, opt, train_step, step_ms = train_main_path(
         predictor, crt, t_frames, device)
     profile_path('Tutorial-3', opt, train_step, crt, step_ms)
-    alma_chunked = alma_phase(kernels, device)
+    alma_chunked, alma_host = alma_phase(kernels, device)
     recovery = recovery_phase(kernels, geos, device)
     fit_script = fit_script_phase(kernels, device)
     eht = eht_phase(kernels, geos, device)
+    trace_entry, device_trace = device_trace_phase(geos, geos_s, alma_host,
+                                                   eht, device)
+    trace_entry['fit_chi2_df_launches'] = fit_script['chi2_device_launches']
     for entry, count in zip(kernels, launches):
         entry['launches'] = count
         entry['launches_per_step'] = count / STEPS
+    kernels.append(trace_entry)
     print(json.dumps({'recovery': recovery}), flush=True)
     print(json.dumps({'scan': {
         'recovery_bf16_chunked': recovery['bfloat16_chunked'],
         'alma_lc_chunked': alma_chunked, 'fit_script': fit_script}}),
         flush=True)
     print(json.dumps({'eht': eht}), flush=True)
+    print(json.dumps({'device_trace': device_trace}), flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -683,3 +683,139 @@ def test_chunked_run_matches_per_step_run_on_card(cuda_device):
     assert [s for s, _ in series[8]] == list(range(1, 21))
     np.testing.assert_allclose([l for _, l in series[8]],
                                [l for _, l in series[0]], rtol=1e-5)
+
+
+def _trace_inputs(device, npix=8, variants=1, spin=0.94, fov=16.0):
+    """initial_state of the float32 trace (inclination 60 deg) over
+    `variants` jittered npix x npix screens of one seed, on `device`."""
+    from bhnerf_tpu_torch.geodesics import integrator
+    from bhnerf_tpu_torch.geodesics.dataset import subpixel_jittered_axes
+    rng = np.random.default_rng(0)
+    grids = [np.meshgrid(*subpixel_jittered_axes(
+        (-fov / 2, fov / 2), (-fov / 2, fov / 2), npix, npix, rng),
+        indexing='ij') for _ in range(variants)]
+    alpha = np.stack([a for a, _ in grids]).astype(np.float32).ravel()
+    beta = np.stack([b for _, b in grids]).astype(np.float32).ravel()
+    state0, lam, eta = integrator.initial_state(alpha, beta, spin,
+                                                np.deg2rad(60.0), 1000.0,
+                                                torch.float32)
+    return (integrator.RayState(*(x.to(device) for x in state0)),
+            lam.to(device), eta.to(device))
+
+
+def _table(samples):
+    """(r, theta, t) of the tracer's samples as trace_geodesics forms
+    them, and (phi, pm_r, pm_th) as recorded, (rays, ngeo) each."""
+    s = {k: v.cpu().numpy().T for k, v in samples.items()}
+    return ((1.0 / s['u'], np.arccos(np.clip(s['c'], -1.0, 1.0)),
+             s['t'].astype(np.float64) - s['t_c'].astype(np.float64)),
+            (s['phi'], s['pm_r'], s['pm_th']))
+
+
+@pytest.mark.cuda
+def test_geodesic_kernel_matches_plain_on_card(cuda_device):
+    """The tracer kernel against its plain version (the float32 torch loop)
+    on the same card inputs, 8x8 rays x 24 samples at n_fine 512, on all
+    seven fields it writes: the device trace's gate (p90 dr/r < 1e-4,
+    dtheta < 1e-3, |dt| < 1e-3, in the domain r <= 16 max |dt| < 1 M and
+    p99 < 1e-2, no re-entry), its p90 bars of dr/r and dtheta held at the
+    99th percentile, phi under t's bars, the momentum signs equal on every
+    sample of the rays of the same terminal Mino time, median |dt| and
+    |dphi| < 2e-4, and the same terminal Mino time on >= 95% of the rays;
+    one launch on the counter."""
+    from bhnerf_tpu_torch.geodesics import integrator
+    from bhnerf_tpu_torch.scripts.drive_device_geos import (
+        compare, compare_phi_signs)
+    state0, lam, eta = _trace_inputs(cuda_device)
+    kw = dict(r_o=1000.0, n_fine=512, ngeo=24)
+    before = integrator.trace_rays.launches
+    tau_k, s_k = integrator.trace_rays(state0, 0.94, lam, eta, **kw)
+    assert integrator.trace_rays.launches == before + 1
+    tau_p, s_p = integrator.trace_rays_plain(state0, 0.94, lam, eta, **kw)
+    torch.cuda.synchronize()
+    assert integrator.trace_rays.launches == before + 1
+    assert set(s_k) == set(s_p)
+    for k in s_k:
+        assert s_k[k].shape == s_p[k].shape == (24, 64)
+        assert s_k[k].dtype == torch.float32 and s_k[k].is_cuda
+    (table_k, rest_k), (table_p, rest_p) = _table(s_k), _table(s_p)
+    q = compare(table_k, table_p, 16.0)
+    assert q['ok'] and q['median_dt'] < 2e-4, q
+    assert q['p99_dr_rel'] < 1e-4 and q['p99_dtheta'] < 1e-3, q
+    same = (tau_k == tau_p).cpu().numpy()
+    assert same.mean() >= 0.95
+    q = compare_phi_signs(table_k[0], rest_k, rest_p, same, 16.0)
+    assert q['ok'] and q['median_dphi'] < 2e-4, q
+
+
+@pytest.mark.cuda
+def test_geodesic_kernel_ensemble_is_one_launch_on_card(cuda_device):
+    """Three stacked 8x8 screens trace in one launch, bitwise equal to one
+    launch per screen (one thread a ray: no ray sees another)."""
+    from bhnerf_tpu_torch.geodesics import integrator
+    state0, lam, eta = _trace_inputs(cuda_device, variants=3)
+    kw = dict(r_o=1000.0, n_fine=512, ngeo=24)
+    before = integrator.trace_rays.launches
+    tau, samples = integrator.trace_rays(state0, 0.94, lam, eta, **kw)
+    assert integrator.trace_rays.launches == before + 1
+    for v in range(3):
+        part = slice(64 * v, 64 * (v + 1))
+        tau_v, s_v = integrator.trace_rays(
+            integrator.RayState(*(x[part].contiguous() for x in state0)),
+            0.94, lam[part].contiguous(), eta[part].contiguous(), **kw)
+        assert torch.equal(tau_v, tau[part])
+        for k in s_v:
+            assert torch.equal(s_v[k], samples[k][:, part]), k
+    assert integrator.trace_rays.launches == before + 4
+
+
+@pytest.mark.cuda
+def test_geodesic_kernel_refuses_other_inputs_on_card(cuda_device):
+    """A CUDA tensor that is not float32, not contiguous or of another
+    length raises before any launch; CPU tensors take the plain version
+    and leave the counter still."""
+    from bhnerf_tpu_torch.geodesics import integrator
+    state0, lam, eta = _trace_inputs(cuda_device)
+    kw = dict(r_o=1000.0, n_fine=64, ngeo=4)
+    before = integrator.trace_rays.launches
+    bad = [
+        (integrator.RayState(*(x.double() for x in state0)), lam.double(),
+         eta.double()),
+        (state0, lam.repeat(2)[::2], eta),
+        (state0, lam[:10].contiguous(), eta),
+    ]
+    for s, l, e in bad:
+        with pytest.raises(ValueError, match='float32'):
+            integrator.trace_rays(s, 0.94, l, e, **kw)
+    cpu = (integrator.RayState(*(x.cpu() for x in state0)), lam.cpu(),
+           eta.cpu())
+    tau, samples = integrator.trace_rays(cpu[0], 0.94, *cpu[1:], **kw)
+    assert tau.device.type == 'cpu' and samples['u'].device.type == 'cpu'
+    assert integrator.trace_rays.launches == before
+
+
+@pytest.mark.cuda
+def test_trace_geodesics_device_backend_on_card(cuda_device):
+    """trace_geodesics(backend='device') on the card: one launch, r in
+    float32 and t folded in float64 as the reference returns them, and
+    the same table (to the gate) as the plain version's on the CPU;
+    backend='cpu' (the default) and device='cpu' launch nothing."""
+    from bhnerf_tpu_torch.geodesics import integrator, trace_geodesics
+    from bhnerf_tpu_torch.scripts.drive_device_geos import compare, table
+    axis = np.linspace(-8.0, 8.0, 8)
+    alpha, beta = np.meshgrid(axis, axis, indexing='ij')
+    kw = dict(ngeo=24, n_fine=512)
+    before = integrator.trace_rays.launches
+    g = trace_geodesics(alpha, beta, 0.5, np.deg2rad(60.0), backend='device',
+                        device=cuda_device, **kw)
+    assert integrator.trace_rays.launches == before + 1
+    assert g.r.dtype == g.theta.dtype == np.float32
+    assert g.t.dtype == np.float64 and g.r.shape == (8, 8, 24)
+    assert np.isfinite(g.r).all() and np.isfinite(g.t).all()
+    g_cpu = trace_geodesics(alpha, beta, 0.5, np.deg2rad(60.0),
+                            backend='device', device='cpu', **kw)
+    g64 = trace_geodesics(alpha, beta, 0.5, np.deg2rad(60.0), **kw)
+    assert integrator.trace_rays.launches == before + 1
+    assert g64.r.dtype == np.float64
+    assert compare(table(g), table(g_cpu), 16.0)['ok']
+    assert compare(table(g), table(g64), 16.0)['ok']

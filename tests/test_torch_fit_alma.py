@@ -226,11 +226,22 @@ def test_chi2_lightcurves_matches_jax(tmp_path, small_fit, rmin, rmax):
 
 
 def test_chi2_df_refuses_the_device_tracer():
-    """The device tracer and meshes are not ported: chi2_df says so before
-    it does any work."""
-    for kw in (dict(backend='device'), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="backend='cpu'"):
-            alma.chi2_df([60.0], 0.0, [1], {}, '{}-{}', None, None, **kw)
+    """chi2_df refuses the device tracer with a mesh (sharding the trace
+    is not ported; neither is a mesh with the host trace) and refuses an
+    unknown backend, before it does any work. Without a mesh the device
+    tracer is taken (tests/test_torch_device_geos.py runs it): over a
+    grid without checkpoints it traces nothing and leaves every cell
+    NaN."""
+    for backend in ('cpu', 'device'):
+        with pytest.raises(NotImplementedError, match='mesh'):
+            alma.chi2_df([60.0], 0.0, [1], {}, '{}-{}', None, None,
+                         backend=backend, mesh=object())
+    with pytest.raises(ValueError, match='backend'):
+        alma.chi2_df([60.0], 0.0, [1], {}, '{}-{}', None, None,
+                     backend='tpu')
+    df = alma.chi2_df([60.0], 0.0, [1], {}, '{}-{}', None, None,
+                      backend='device', device='cpu')
+    assert df.shape == (1, 1) and np.isnan(df.values).all()
 
 
 @pytest.fixture(scope='module')
