@@ -1,15 +1,16 @@
 """Synthetic emission, the velocity warp, the forward movie renderer, the
 supervision-domain mask and Stokes helpers.
 
-PyTorch counterpart of a subset of `bhnerf_tpu/emission.py`: the hotspot
-generator (:24-56), the rigid-rotation velocity warp that maps every
-frame back to the canonical t0 frame and the emission-shell mask
-(:101-222), trilinear sampling of a 3D field (:181), the forward movie
-renderer `image_plane_dynamics` (:243-322) with the per-sample Stokes
-factors (:228), and the host-side Stokes helpers `normalize_stokes` and
-`rotate_evpa` (:360-397), which work on numpy arrays like the rest of the
-once-per-configuration precompute. `generate_tube`, `equatorial_ring`
-and `propogate_flatspace_emission` are not ported yet.
+PyTorch counterpart of `bhnerf_tpu/emission.py`: the synthetic
+generators (the hotspot and the flux tube :35-81, the equatorial ring
+:84-98, a flat-space advected field :325-337 and a Gaussian-random-field
+disk seen through the geodesics :340-357), the rigid-rotation velocity
+warp that maps every frame back to the canonical t0 frame and the
+emission-shell mask (:101-222), trilinear sampling of a 3D field (:181),
+the forward movie renderer `image_plane_dynamics` (:243-322) with the
+per-sample Stokes factors (:228), and the host-side Stokes helpers
+`normalize_stokes` and `rotate_evpa` (:360-397), which work on numpy
+arrays like the rest of the once-per-configuration precompute.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch
 
 from bhnerf_tpu_torch import constants as consts
 from bhnerf_tpu_torch import units, utils
+from bhnerf_tpu_torch.geodesics import equatorial
 from bhnerf_tpu_torch.ops import gr
 
 # image_plane_dynamics renders frames in chunks that keep its eager warp
@@ -65,6 +67,49 @@ def generate_hotspot(resolution, rot_axis, rot_angle, orbit_radius, std,
                                     std_clip=std_clip)
     if normalize:
         emission = emission / emission.integrate()
+    return emission
+
+
+def generate_tube(resolution, rot_axis, phi_start, phi_end, orbit_radius, std,
+                  r_isco, fov, std_clip=np.inf, normalize=True):
+    """Azimuthal flux-tube arc with a Gaussian cross-section (reference
+    emission.py:56-81): the sum of Gaussian blobs every 0.015 rad of
+    azimuth over [phi_start, phi_end) on the orbit of `orbit_radius` in the
+    plane normal to `rot_axis`; a Grid3D on the host, normalised to a unit
+    integral unless `normalize` is False. An arc that wraps through 2 pi
+    is given as phi_end = phi_start + extent."""
+    if orbit_radius < r_isco:
+        raise ValueError(
+            f'tube radius ({orbit_radius}) is within r_isco: {r_isco}')
+    resolution = tuple(int(n) for n in np.atleast_1d(resolution))
+    if phi_end <= phi_start:
+        raise ValueError(
+            f'empty tube range [{phi_start}, {phi_end}): for an arc '
+            f'wrapping through 2*pi pass phi_end = phi_start + extent '
+            f'(angles beyond 2*pi wrap naturally)')
+    rot_matrix = _orbit_rotation(rot_axis)
+    data = 0.0
+    for phi in np.arange(phi_start, phi_end, 0.015):
+        center_2d = orbit_radius * np.array([np.cos(phi), np.sin(phi)])
+        grid = utils.gaussian_field(resolution,
+                                    rot_matrix @ np.append(center_2d, 0.0),
+                                    std, fov=fov, std_clip=std_clip)
+        data = data + grid.data
+    emission = utils.Grid3D(data, grid.start, grid.stop)
+    if normalize:
+        emission = emission / emission.integrate()
+    return emission
+
+
+def equatorial_ring(geos, mbar):
+    """Unit emission at the sample nearest the mbar-th equatorial crossing
+    of each ray, zero elsewhere (reference emission.py:84-98): a numpy
+    array shaped like geos.r. Crossings are detected by
+    geodesics.equatorial.crossing_index."""
+    found, _, idx_nearest = equatorial.crossing_index(geos, mbar)
+    emission = np.zeros_like(geos.r)
+    it = np.indices(idx_nearest.shape)
+    emission[(*it, idx_nearest)] = np.where(found, 1.0, 0.0)
     return emission
 
 
@@ -260,6 +305,48 @@ def image_plane_dynamics(emission_0, geos, Omega, t_frames, t_injection,
         render(t_M[i:i + frame_chunk],
                data[i:i + frame_chunk] if is_movie else data)
         for i in range(0, nt, frame_chunk)])
+
+
+def propogate_flatspace_emission(emission_0, Omega_3D, t_frames,
+                                 t_start_obs=None, rot_axis=(0, 0, 1),
+                                 M=consts.sgra_mass, device='cuda'):
+    """Advect a flat-space 3D field rigidly through time (reference
+    emission.py:325-337): each frame samples `emission_0` (a Grid3D) at
+    its grid points rotated back by Omega_3D (t - t_start_obs), zero
+    before t_start_obs (the first frame unless given). Returns
+    (nt, nx, ny, nz) on `device`."""
+    coords = _as_tensor(np.stack(emission_0.meshgrid(), axis=0), device)
+    if t_start_obs is None:
+        t_start_obs = np.atleast_1d(np.asarray(t_frames))[0]
+    warped, valid = velocity_warp_coords(
+        coords, _as_tensor(Omega_3D, device), t_frames, t_start_obs, 0.0,
+        0.0, rot_axis=rot_axis, M=M)
+    out = interpolate_coords(emission_0, warped)
+    return torch.where(valid, out, torch.zeros_like(out))
+
+
+def grf_to_image_plane(grf, geos, Omega, J, diameter_M, alpha=2.0,
+                       H_r=0.075, device='cuda'):
+    """A Gaussian-random-field accretion disk seen through the geodesics
+    (reference emission.py:340-357): exp(alpha grf) under a Gaussian
+    envelope of FWHM diameter_M, inflated to 3D with scale height H_r r
+    (utils.expand_3d) and rendered frame by frame with
+    image_plane_dynamics(slow_light=False) on `device`. grf: (ny, nx) or
+    (nt, ny, nx). Returns ([nt,] [nstokes,] na, nb)."""
+    fov_M = float(geos.alpha[-1, 0] - geos.alpha[0, 0])
+    grf = _as_tensor(grf, device)
+    gaussian = utils.gaussian_field(
+        [grf.shape[-2], grf.shape[-1]], [0, 0], std=diameter_M / 2.355,
+        fov=fov_M)
+    movie = torch.exp(alpha * grf) * gaussian.data.to(device)
+    if movie.ndim == 2:
+        movie = movie[None]
+    emission = utils.expand_3d(movie, fov_xy=fov_M, fov_z=fov_M, H_r=H_r)
+    out = torch.stack([image_plane_dynamics(
+        utils.Grid3D(frame, emission.start, emission.stop), geos, Omega,
+        0.0, 0.0, J, slow_light=False, device=device)
+        for frame in emission.data])
+    return out[0] if out.shape[0] == 1 else out
 
 
 def domain_mask(coords, rmin=0.0, rmax=np.inf, z_width=np.inf):

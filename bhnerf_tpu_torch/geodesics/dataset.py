@@ -17,7 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from bhnerf_tpu_torch.geodesics import integrator
+from bhnerf_tpu_torch.geodesics import integrator, kerr
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,40 +79,34 @@ class Geodesics:
     def z(self):
         return self.r * np.cos(self.theta)
 
-    # metric functions and potentials, numpy float64
+    # metric functions and potentials, numpy, by the formulas of kerr.py
     @property
     def Sigma(self):
-        return self.r**2 + self.spin**2 * np.cos(self.theta) ** 2
+        return kerr.Sigma(self.r, self.theta, self.spin)
 
     @property
     def Delta(self):
-        return self.r**2 - 2.0 * self.r + self.spin**2
+        return kerr.Delta(self.r, self.spin)
 
     @property
     def Xi(self):
-        return ((self.r**2 + self.spin**2) ** 2
-                - self.spin**2 * self.Delta * np.sin(self.theta) ** 2)
+        return kerr.Xi(self.r, self.theta, self.spin)
 
     @property
     def omega(self):
         """Frame-dragging angular velocity of the zero-angular-momentum
         observers."""
-        return 2.0 * self.spin * self.r / self.Xi
+        return kerr.omega(self.r, self.theta, self.spin)
 
     @property
     def R(self):
-        lam = self.lam[..., None]
-        eta = self.eta[..., None]
-        return ((self.r**2 + self.spin**2 - self.spin * lam) ** 2
-                - self.Delta * (eta + (lam - self.spin) ** 2))
+        return kerr.R_potential(self.r, self.spin, self.lam[..., None],
+                                self.eta[..., None])
 
     @property
     def Theta(self):
-        lam = self.lam[..., None]
-        eta = self.eta[..., None]
-        cos2 = np.cos(self.theta) ** 2
-        sin2 = np.sin(self.theta) ** 2
-        return eta + self.spin**2 * cos2 - lam**2 * cos2 / sin2
+        return kerr.Theta_potential(self.theta, self.spin,
+                                    self.lam[..., None], self.eta[..., None])
 
     @property
     def affine(self):
@@ -150,8 +144,8 @@ class Geodesics:
     def keplerian_omega(self, direction=1.0, frac=1.0):
         """Keplerian angular velocity field along the rays
         (reference alma.py:49)."""
-        return (direction * frac * np.sqrt(self.M)
-                / (self.r ** 1.5 + self.spin * np.sqrt(self.M)))
+        return kerr.keplerian_omega(self.r, self.spin, self.M, direction,
+                                    frac)
 
 
 def subpixel_jittered_axes(alpha_range, beta_range, num_alpha, num_beta,

@@ -86,8 +86,7 @@ def initial_state(alpha, beta, spin, inc, r_o, dtype=torch.float64):
     alpha = np.asarray(alpha, np.float64)
     beta = np.asarray(beta, np.float64)
     sin_i, cos_i = np.sin(inc), np.cos(inc)
-    lam = -alpha * sin_i
-    eta = (alpha**2 - spin**2) * cos_i**2 + beta**2
+    lam, eta = kerr.conserved_quantities(alpha, beta, spin, inc)
 
     as_t = lambda x: torch.as_tensor(np.asarray(x, np.float64)).to(dtype)
     lam_t, eta_t = as_t(lam), as_t(eta)

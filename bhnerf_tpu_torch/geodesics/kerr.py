@@ -6,13 +6,23 @@ PyTorch counterpart of `bhnerf_tpu/geodesics/kerr.py`. Conventions
 beta = p_theta at the observer) and the trig-free (u = 1/r, c = cos theta)
 forms of the radial and polar potentials are those of the reference
 module docstring. Every function is elementwise and works on tensors of
-any float dtype; the host tracer runs them in float64.
+any float dtype; the host tracer runs them in float64. The conserved
+quantities, the metric functions (Delta, Sigma, Xi, omega), the
+potentials R and Theta and the Keplerian angular velocity also take
+numpy arrays, in numpy, so that the numpy tables of `dataset.Geodesics`
+compute them with the same formulas.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+
+def _xp(x):
+    """torch for a tensor, numpy for anything else."""
+    return torch if isinstance(x, torch.Tensor) else np
 
 
 def horizon(spin):
@@ -20,17 +30,44 @@ def horizon(spin):
     return 1.0 + math.sqrt(1.0 - spin**2)
 
 
+def conserved_quantities(alpha, beta, spin, inc):
+    """Energy-rescaled angular momentum lambda and Carter constant eta of
+    the rays through screen points (alpha, beta) [M] of an observer at
+    inclination `inc` [rad, a scalar]."""
+    lam = -alpha * np.sin(inc)
+    eta = (alpha**2 - spin**2) * np.cos(inc) ** 2 + beta**2
+    return lam, eta
+
+
 def Delta(r, spin):
     return r**2 - 2.0 * r + spin**2
 
 
 def Sigma(r, theta, spin):
-    return r**2 + spin**2 * torch.cos(theta) ** 2
+    return r**2 + spin**2 * _xp(theta).cos(theta) ** 2
+
+
+def Xi(r, theta, spin):
+    """Metric function  Xi = (r^2+a^2)^2 - a^2 Delta sin^2(theta)."""
+    return ((r**2 + spin**2) ** 2
+            - spin**2 * Delta(r, spin) * _xp(theta).sin(theta) ** 2)
+
+
+def omega(r, theta, spin):
+    """Frame-dragging angular velocity  omega = 2 a r / Xi."""
+    return 2.0 * spin * r / Xi(r, theta, spin)
 
 
 def R_potential(r, spin, lam, eta):
     return ((r**2 + spin**2 - spin * lam) ** 2
             - Delta(r, spin) * (eta + (lam - spin) ** 2))
+
+
+def Theta_potential(theta, spin, lam, eta):
+    xp = _xp(theta)
+    cos2 = xp.cos(theta) ** 2
+    sin2 = xp.sin(theta) ** 2
+    return eta + spin**2 * cos2 - lam**2 * cos2 / sin2
 
 
 def U_potential(u, spin, lam, eta):
@@ -75,3 +112,9 @@ def t_rate(u, c, spin, lam):
     delta = Delta(r, spin)
     return ((r**2 + spin**2) / delta * (r**2 + spin**2 - spin * lam)
             + spin * (lam - spin * (1.0 - c**2)))
+
+
+def keplerian_omega(r, spin, M=1.0, direction=1.0, frac=1.0):
+    """Keplerian angular velocity Omega = sqrt(M)/(r^{3/2} + a sqrt(M))
+    (reference bhnerf/alma.py:49, Tutorial2)."""
+    return direction * frac * np.sqrt(M) / (r ** 1.5 + spin * np.sqrt(M))

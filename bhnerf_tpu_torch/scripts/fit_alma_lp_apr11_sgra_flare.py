@@ -12,7 +12,8 @@ beside the JAX package) and takes the same arguments. A run directory that
 exists is skipped; with --resume an unfinished run continues from its
 latest checkpoint to the configured number of iterations. DRIVE_CPU=1 in
 the environment runs on the host. `run_sweep` is the sweep itself, for
-callers that bring their own writer (train.logging.MemoryWriter);
+callers that bring their own writer (train.logging.MemoryWriter); its
+loop, `run_grid`, also runs fit_synthetic_lp_flares' sweep;
 `write_synthetic_observation` writes a seeded lightcurve in the data
 file's format.
 """
@@ -81,65 +82,58 @@ def split_data(cfg, device='cuda'):
     return predictor, parts[0], parts[1]
 
 
-def _log_fns(writer, fov_M, log_period, train, val):
-    """The fit's four LogFns: the training loss every step, and every
-    log_period steps the recovered volume and the training and
-    validation lightcurve fits."""
+def _log_fns(writer, fov_M, log_period, stokes, train, val=None,
+             emission_true=None):
+    """A fit's LogFns: the training loss every step, and every log_period
+    steps the recovered volume (with its mse and psnr against
+    `emission_true` when given), the training lightcurve fit and, with
+    `val`, the validation one."""
     from bhnerf_tpu_torch.train import LogFn
-    stokes = ['I', 'Q', 'U']
-    return [
+    fns = [
         LogFn(lambda opt: writer.add_scalar(
             'log_loss/train', np.log10(float(opt.loss)),
             global_step=opt.step)),
-        LogFn(writer.recovery_3d(fov_M), log_period=log_period),
-        LogFn(lambda opt: writer.plot_lc_datafit(
-            opt, 'training', train['step'], train['data'], stokes,
-            train['t'], batchsize=20), log_period=log_period),
-        LogFn(lambda opt: writer.plot_lc_datafit(
-            opt, 'validation', val['step'], val['data'], stokes, val['t'],
-            batchsize=20), log_period=log_period),
-    ]
+        LogFn(writer.recovery_3d(fov_M, emission_true=emission_true),
+              log_period=log_period)]
+    for name, part in (('training', train), ('validation', val)):
+        if part is not None:
+            fns.append(LogFn(
+                lambda opt, name=name, part=part: writer.plot_lc_datafit(
+                    opt, name, part['step'], part['data'], stokes,
+                    part['t'], batchsize=20), log_period=log_period))
+    return fns
 
 
-def run_sweep(cfg, inc_grid, seeds, writer_factory, resume=False,
-              device='cuda', model_overrides=None, verbose=True):
-    """Fit every (inclination, seed) of the grid (reference
-    scripts/fit_alma_lp_apr11_sgra_flare.py:46-170) with a writer from
-    writer_factory(logdir=...) for each run. A run whose checkpoint
-    directory exists is skipped, unless `resume`: then it continues from
-    its latest checkpoint to hparams.num_iters. The ray constants of an
-    inclination are traced (with `model_overrides` merged into the model
-    block, e.g. the tracer's n_fine) once, when its first run starts, and
-    compacted in the 'gather' layout when the configuration is fused.
-    Returns one record per run that trained: run name, inclination,
-    seed, first and last step, and the optimizer and writer."""
-    from bhnerf_tpu_torch import alma
+def run_grid(inc_grid, seeds, trace, predictor, train_step, make_log_fns,
+             writer_factory, opt_cfg, checkpoint_root, log_root=None,
+             resume=False, device='cuda', verbose=True):
+    """The sweep loop shared by the fit scripts: every (inclination, seed)
+    of the grid trains an Optimizer from opt_cfg.hparams (its seed
+    replaced) in checkpoint_root/<run name>, with a writer from
+    writer_factory(logdir=...) in log_root/<run name> (the checkpoint
+    directory when log_root is None) and the LogFns of
+    make_log_fns(writer). A run whose checkpoint directory exists is
+    skipped, unless `resume`: then it continues from its latest checkpoint
+    to hparams.num_iters. The ray constants of an inclination come from
+    trace(inclination) once, when its first run starts, compacted in the
+    'gather' layout when the configuration is fused. Returns one record
+    per run that trained: run name, inclination, seed, first and last
+    step, and the optimizer and writer."""
     from bhnerf_tpu_torch.train import Optimizer, compact_ensemble_args
 
-    opt_cfg, model = cfg.optimization, cfg.model
-    ckpt_root = Path(opt_cfg.checkpoint_dir)
-    ckpt_root.mkdir(parents=True, exist_ok=True)
-    cfg.to_yaml(ckpt_root / 'config.yml')
-    predictor, train, val = split_data(cfg, device)
-    rot_angle = np.deg2rad(cfg.preprocess.de_rot_angle + 20.0)
-    model_params = dict(model.asdict(), **(model_overrides or {}))
     hparams = opt_cfg.hparams.asdict()
     say = print if verbose else (lambda *a, **k: None)
-
     records = []
     for inclination in inc_grid:
         raytracing_args = None
         for seed in seeds:
             runname = RUN_NAME.format(inclination, seed)
-            checkpoint_dir = ckpt_root / runname
+            checkpoint_dir = Path(checkpoint_root) / runname
             resuming = checkpoint_dir.exists()
             if resuming and not resume:
                 continue  # sweep-level resume (reference alma.py:109)
             if raytracing_args is None:
-                raytracing_args = alma.get_raytracing_args(
-                    np.deg2rad(inclination), model.spin, model_params,
-                    rot_angle=rot_angle, num_subpixel_rays=model.num_subrays,
-                    device=device)
+                raytracing_args = trace(inclination)
                 if opt_cfg.fused:
                     raytracing_args = compact_ensemble_args(
                         raytracing_args, predictor, layout='gather')
@@ -159,11 +153,11 @@ def run_sweep(cfg, inc_grid, seeds, writer_factory, resume=False,
                 if remaining <= 0:
                     continue  # already finished
                 optimizer.num_iters = remaining
-            writer = writer_factory(logdir=os.path.join(opt_cfg.log_dir,
-                                                        runname))
-            optimizer.run(opt_cfg.batchsize, train['step'], raytracing_args,
-                          log_fns=_log_fns(writer, model.fov_M,
-                                           opt_cfg.log_period, train, val),
+            writer = writer_factory(logdir=str(
+                checkpoint_dir if log_root is None
+                else Path(log_root) / runname))
+            optimizer.run(opt_cfg.batchsize, train_step, raytracing_args,
+                          log_fns=make_log_fns(writer),
                           scan_chunk=opt_cfg.scan_chunk, verbose=verbose)
             writer.close()
             records.append(dict(run=runname, inclination=inclination,
@@ -171,6 +165,37 @@ def run_sweep(cfg, inc_grid, seeds, writer_factory, resume=False,
                                 last_step=optimizer.state.step,
                                 optimizer=optimizer, writer=writer))
     return records
+
+
+def run_sweep(cfg, inc_grid, seeds, writer_factory, resume=False,
+              device='cuda', model_overrides=None, verbose=True):
+    """Fit every (inclination, seed) of the grid (reference
+    scripts/fit_alma_lp_apr11_sgra_flare.py:46-170) by `run_grid`, with
+    checkpoints under cfg.optimization.checkpoint_dir and logs under its
+    log_dir. The ray constants are traced with `model_overrides` merged
+    into the model block (e.g. the tracer's n_fine)."""
+    from bhnerf_tpu_torch import alma
+
+    opt_cfg, model = cfg.optimization, cfg.model
+    ckpt_root = Path(opt_cfg.checkpoint_dir)
+    ckpt_root.mkdir(parents=True, exist_ok=True)
+    cfg.to_yaml(ckpt_root / 'config.yml')
+    predictor, train, val = split_data(cfg, device)
+    rot_angle = np.deg2rad(cfg.preprocess.de_rot_angle + 20.0)
+    model_params = dict(model.asdict(), **(model_overrides or {}))
+
+    def trace(inclination):
+        return alma.get_raytracing_args(
+            np.deg2rad(inclination), model.spin, model_params,
+            rot_angle=rot_angle, num_subpixel_rays=model.num_subrays,
+            device=device)
+
+    return run_grid(
+        inc_grid, seeds, trace, predictor, train['step'],
+        lambda writer: _log_fns(writer, model.fov_M, opt_cfg.log_period,
+                                ['I', 'Q', 'U'], train, val),
+        writer_factory, opt_cfg, ckpt_root, log_root=opt_cfg.log_dir,
+        resume=resume, device=device, verbose=verbose)
 
 
 def write_synthetic_observation(path, t_start=9.30, t_end=11.85,

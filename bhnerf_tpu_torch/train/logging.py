@@ -28,7 +28,8 @@ except ImportError:
 
 class _LogClosures:
     """The log closures of a fit, over a writer's add_scalar and its two
-    hooks: `_add_volume` (an estimated emission volume) and
+    hooks: `add_volume` (an emission volume, also called by a fit script
+    for the true one) and
     `_add_lightcurves` (a lightcurve fit against its target)."""
 
     def recovery_3d(self, fov, vis_res=64, emission_true=None):
@@ -47,7 +48,7 @@ class _LogClosures:
         def log_fn(opt):
             emission_grid = sample_3d_grid(opt.predictor, opt.params,
                                            coords=vis_coords)
-            self._add_volume('emission/estimate', emission_grid, opt.step)
+            self.add_volume('emission/estimate', emission_grid, opt.step)
             if emission_true is not None:
                 true = emission_true.data
                 self.add_scalar('emission/mse',
@@ -89,7 +90,7 @@ class SummaryWriter(_LogClosures,
                 'here beats an AttributeError hours into training)')
         super().__init__(*args, **kwargs)
 
-    def _add_volume(self, tag, volume, step):
+    def add_volume(self, tag, volume, step):
         self.add_images(tag, utils.intensity_to_nchw(volume),
                         dataformats='NCWH', global_step=step)
 
@@ -119,7 +120,7 @@ class MemoryWriter(_LogClosures):
     def add_scalar(self, tag, value, global_step=None):
         self.scalars.setdefault(tag, []).append((global_step, float(value)))
 
-    def _add_volume(self, tag, volume, step):
+    def add_volume(self, tag, volume, step):
         self.volumes.setdefault(tag, []).append((step, np.asarray(volume)))
 
     def _add_lightcurves(self, name, target, lc_est, stokes, t_frames,

@@ -1,9 +1,10 @@
-"""Plots of fits: the Stokes lightcurve panels.
+"""Plots of fits: the Stokes lightcurve panels and polarization ticks.
 
 PyTorch-package counterpart of `bhnerf_tpu/visualization.py`, of which
-only `plot_stokes_lc` (:21-53) is ported so far: the lightcurve figure
-that `train.logging.SummaryWriter.plot_lc_datafit` logs. matplotlib is
-imported by the function, not with the module.
+`plot_stokes_lc` (:21-53), the lightcurve figure that
+`train.logging.SummaryWriter.plot_lc_datafit` logs, and `plot_evpa_ticks`
+(:56-67), the EVPA ticks of the Gelles2021 example, are ported so far.
+matplotlib is imported by the functions, not with the module.
 """
 from __future__ import annotations
 
@@ -44,3 +45,19 @@ def plot_stokes_lc(lightcurves, stokes=('I', 'Q', 'U'), t_frames=None,
         ax.set_aspect('equal')
     plt.tight_layout()
     return axes
+
+
+def plot_evpa_ticks(Q, U, alpha, beta, ax=None, color='white', scale=25,
+                    width=0.004, headwidth=0):
+    """Polarization ticks at screen points (alpha, beta): headless quivers
+    of length sqrt(Q^2 + U^2) along the EVPA, measured East of North
+    (reference visualization.py:56-67). Returns the axes."""
+    import matplotlib.pyplot as plt
+    if ax is None:
+        _, ax = plt.subplots()
+    evpa = 0.5 * np.arctan2(np.asarray(U), np.asarray(Q))
+    p = np.sqrt(np.asarray(Q) ** 2 + np.asarray(U) ** 2)
+    ax.quiver(alpha, beta, -p * np.sin(evpa), p * np.cos(evpa),
+              color=color, scale=scale, width=width, headwidth=headwidth,
+              headlength=0, headaxislength=0, pivot='mid')
+    return ax

@@ -3,8 +3,9 @@ their plain versions at the shapes of the training paths, train a few
 steps of the Tutorial-3 image fit and of the ALMA polarized-lightcurve fit
 at full width, recover a synthetic hotspot from its movie in 1000 steps
 (per step and in chunks) and from an ngEHT observation in 5000, run
-the ALMA fit script's sweep, and trace geodesic tables on the card with
-the float32 tracer kernel, on one CUDA device.
+the ALMA fit script's sweep, trace geodesic tables on the card with
+the float32 tracer kernel, and run equatorial lensing and the
+synthetic-flare workflow on it, on one CUDA device.
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 nvcc:
@@ -97,10 +98,29 @@ Phases (any failure raises and exits non-zero):
      of the host one; 20 ALMA 'lc' steps on the device-traced ensemble;
      the kernel's ms at 64x64 (n_fine 8192), 128x128 and the ensemble,
      with its bound and the time of its longest ray alone, and the wall
-     seconds of the traces and of get_raytracing_args against the host's.
-The five lines before the last are the JSON recovery, chunked-loop, EHT
-and device-trace summaries and the JSON kernel summary; the last line is
-{"ok": true, "device": {...}}.
+     seconds of the traces and of get_raytracing_args against the host's;
+  12. synthetic sources and equatorial lensing (lines starting
+     `synthetic`): rho_of_req(0, 20 deg, 6 M) at the reference's sizes
+     (64 azimuths, 40 bisection steps, 400 samples, n_fine 8192) on the
+     device tracer in exactly 42 launches, every root found and its ray
+     crossing within 1e-2 req of req on the host float64 trace; the
+     mbar = 1 ring within 0.35 M of sqrt(27) at 0.01 deg; Gelles2021's
+     face-on checks on the device tracer; equatorial_ring on the
+     Tutorial-3 device table against the host one, every ray whose
+     crossing sample differs explained (ring_differences); then
+     generate_synthetic_lightcurves at its defaults (64x64x100, 123
+     frames, fov 40 M, 60 deg) for SYNTH_SOURCES, rendered on the card,
+     fit_synthetic_lp_flares' sweep on the hotspot at its configuration
+     (4x128, Q/U 'lc', batch 6, fused, chunks of 500) over SYNTH_INCS x
+     one seed cut to SYNTH_STEPS steps with MemoryWriter (launch counts,
+     a falling loss, the psnr against the flare), both kernels against
+     their plain versions at its shapes in float32,
+     chi2_df(backend='device') over its checkpoints (one launch an
+     inclination), and the chi^2 example's small mode on the device
+     tracer.
+The six lines before the last are the JSON recovery, chunked-loop, EHT,
+device-trace and synthetic summaries and the JSON kernel summary; the
+last line is {"ok": true, "device": {...}}.
 """
 import concurrent.futures
 import contextlib
@@ -182,6 +202,11 @@ HBM_BYTES_PER_S = 3.35e12
 # drive's geometry at TRACE_CHECK_N_FINE fine steps keep that loop short
 TRACE_CHECK_RAYS = 32
 TRACE_CHECK_N_FINE = 2048
+# the synthetic phase: the generator's sources at its defaults, then the
+# synthetic fit's sweep at its configuration, cut to SYNTH_STEPS steps
+SYNTH_SOURCES = ('hotspot', 'tube')
+SYNTH_INCS = (40.0, 60.0)
+SYNTH_STEPS = 500
 # float32 operations of one RK4 step of the tracer (ops/csrc/
 # geodesic_trace.cu), each division counted as one: four right-hand sides
 # of 40 operations and 4 divisions, 24 stage updates, the step h/6 and
@@ -1833,15 +1858,16 @@ def eht_phase(kernels, geos, device):
     return {'npix64_dense_bf16': fit, 'npix128_f32': production}
 
 
-def trace_state(alpha, beta, spin, device):
-    """initial_state of the float32 trace at inclination 60 deg for the
-    screen points (alpha, beta), on the card: (state0, lam, eta)."""
+def trace_state(alpha, beta, spin, device, inc=np.deg2rad(60.0)):
+    """initial_state of the float32 trace at inclination `inc` (60 deg)
+    for the screen points (alpha, beta), on the card: (state0, lam,
+    eta)."""
     import torch
     from bhnerf_tpu_torch.geodesics import integrator
     state0, lam, eta = integrator.initial_state(
         np.ravel(np.asarray(alpha, np.float32)),
-        np.ravel(np.asarray(beta, np.float32)), spin, np.deg2rad(60.0),
-        1000.0, torch.float32)
+        np.ravel(np.asarray(beta, np.float32)), spin, inc, 1000.0,
+        torch.float32)
     return (integrator.RayState(*(x.to(device) for x in state0)),
             lam.to(device), eta.to(device))
 
@@ -2121,13 +2147,15 @@ def flip_report(label, alpha, beta, tau_dev, tau_host, spin, n_fine, device,
     return ok, out
 
 
-def trace_kernel_time(label, alpha, beta, spin, n_fine, device):
-    """The kernel's ms (CUDA events) on a screen, its bound, and the
-    latency floor: the kernel alone on the ray that takes the most RK4
-    steps (no table can be traced faster than its longest ray)."""
+def trace_kernel_time(label, alpha, beta, spin, n_fine, device,
+                      inc=np.deg2rad(60.0), ngeo=NGEO):
+    """The kernel's ms (CUDA events) on a screen (at inclination `inc`,
+    ngeo samples a ray), its bound, and the latency floor: the kernel
+    alone on the ray that takes the most RK4 steps (no table can be
+    traced faster than its longest ray)."""
     from bhnerf_tpu_torch.geodesics import integrator
-    state0, lam, eta = trace_state(alpha, beta, spin, device)
-    kw = dict(r_o=1000.0, n_fine=n_fine, ngeo=NGEO)
+    state0, lam, eta = trace_state(alpha, beta, spin, device, inc)
+    kw = dict(r_o=1000.0, n_fine=n_fine, ngeo=ngeo)
     tau, samples = integrator.trace_rays(state0, spin, lam, eta, **kw)
     ms = cuda_ms(lambda: integrator.trace_rays(state0, spin, lam, eta, **kw))
     steps = rk4_steps(tau, samples, n_fine)
@@ -2136,8 +2164,8 @@ def trace_kernel_time(label, alpha, beta, spin, n_fine, device):
     floor_ms = cuda_ms(lambda: integrator.trace_rays(
         one, spin, lam[i:i + 1].contiguous(), eta[i:i + 1].contiguous(),
         **kw))
-    b_ms, b_by, gflop = trace_bound(steps, NGEO)
-    log(f'device trace {label}: {lam.numel()} rays x {NGEO}, n_fine '
+    b_ms, b_by, gflop = trace_bound(steps, ngeo)
+    log(f'device trace {label}: {lam.numel()} rays x {ngeo}, n_fine '
         f'{n_fine}, one launch: kernel {ms:.3f} ms; {int(steps.sum())} RK4 '
         f'steps, bound {b_ms:.3f} ms ({b_by}: {gflop:.2f} GFLOP), kernel at '
         f'{100 * b_ms / ms:.1f}% of it; the longest ray alone '
@@ -2341,6 +2369,281 @@ def device_trace_phase(t3_geos, t3_s, alma_host, eht, device):
     return entry, summary
 
 
+def ring_differences(host, dev, mbar, n_fine, tau_max=4.0):
+    """Rays whose mbar-th equatorial crossing (emission.equatorial_ring's
+    sample) differs between a host float64 table and a float32 device
+    table of the same screen, and what explains each: a terminal Mino time
+    a fine step apart (the samples move), a cos(theta) whose sign the
+    float32 table may read either way (|cos theta| within the two tables'
+    difference at some sample: a crossing may appear or vanish), or a
+    crossing whose two samples are equally near it within that difference
+    (the nearer sample may swap). Returns the counts."""
+    from bhnerf_tpu_torch.geodesics import equatorial
+    f_h, i_h, n_h = equatorial.crossing_index(host, mbar)
+    f_d, _, n_d = equatorial.crossing_index(dev, mbar)
+    differ = (f_h != f_d) | (f_h & (n_h != n_d))
+    step = lambda tau: np.rint(np.asarray(tau, np.float64) * n_fine / tau_max)
+    flip = step(host.tau_final) != step(dev.tau_final)
+    ct_h = np.cos(np.asarray(host.theta, np.float64))
+    dc = np.abs(np.cos(np.asarray(dev.theta, np.float64)) - ct_h)
+    sign = (np.abs(ct_h) <= dc).any(axis=-1)
+    take = lambda a, i: np.take_along_axis(a, i[..., None], -1)[..., 0]
+    tie = (np.abs(np.abs(take(ct_h, i_h)) - np.abs(take(ct_h, i_h + 1)))
+           <= take(dc, i_h) + take(dc, i_h + 1))
+    return {'rays': int(differ.size), 'crossing': int(f_h.sum()),
+            'differ': int(differ.sum()),
+            'flip': int((differ & flip).sum()),
+            'sign': int((differ & ~flip & sign).sum()),
+            'tie': int((differ & ~flip & ~sign & tie).sum()),
+            'unexplained': int((differ & ~flip & ~sign & ~tie).sum())}
+
+
+def synthetic_phase(kernels, t3_geos, device):
+    """Synthetic sources, equatorial lensing and the synthetic-flare
+    workflow. (a) rho_of_req at the reference's sizes on the device tracer
+    (42 launches, every root found and checked on the host float64
+    trace), the mbar = 1 ring against the photon ring, Gelles2021's
+    face-on checks, and equatorial_ring on the Tutorial-3 device table
+    against the host one; (b) generate_synthetic_lightcurves at its
+    defaults for SYNTH_SOURCES, the movie rendered on the card, then
+    fit_synthetic_lp_flares' sweep on the hotspot at its configuration
+    (4x128, Q/U 'lc', batch 6, fused, chunks of 500) over SYNTH_INCS x one
+    seed cut to SYNTH_STEPS steps, both kernels against their plain
+    versions at its shapes, and chi2_df(backend='device') over its
+    checkpoints; (c) the chi^2 example in its small mode on the device
+    tracer. Fills the synthetic block of the JSON kernel entries and
+    returns the phase's summary."""
+    import tempfile
+    import torch
+    import yaml
+    from bhnerf_tpu_torch import alma, units, utils
+    from bhnerf_tpu_torch.examples import gelles2021_polarized_ring as gelles
+    from bhnerf_tpu_torch.examples import recovery_analysis_chi2_grid
+    from bhnerf_tpu_torch.geodesics import equatorial, image_plane_geos
+    from bhnerf_tpu_torch.geodesics import integrator
+    from bhnerf_tpu_torch.ops import fused
+    from bhnerf_tpu_torch.scripts import fit_alma_lp_apr11_sgra_flare
+    from bhnerf_tpu_torch.scripts import fit_synthetic_lp_flares as fit
+    from bhnerf_tpu_torch.scripts import generate_synthetic_lightcurves as gen
+    from bhnerf_tpu_torch.train.logging import MemoryWriter
+
+    t_phase = time.perf_counter()
+    summary, trace_launches = {}, {}
+
+    def traced(name, fn):
+        integrator.trace_rays.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        trace_launches[name] = integrator.trace_rays.launches
+        return out, time.perf_counter() - t0
+
+    # (a) rho_of_req at the reference's defaults: 64 azimuths, 40
+    # bisection steps, 400 samples a ray, n_fine 8192
+    inc, req = np.deg2rad(20.0), 6.0
+    (phis, rho), rho_s = traced('rho_of_req', lambda: equatorial.rho_of_req(
+        0.0, inc, req, mbar=0, backend='device', device=device))
+    t0 = time.perf_counter()
+    r_host, _ = equatorial.r_equatorial(0.0, np.inf, inc, 0,
+                                        rho * np.cos(phis),
+                                        rho * np.sin(phis))
+    host_s = time.perf_counter() - t0
+    miss = float(np.nanmax(np.abs(r_host - req)))
+    log(f'synthetic rho_of_req(0, 20 deg, {req:g} M, mbar 0) on the device '
+        f'tracer: {len(phis)} azimuths, {trace_launches["rho_of_req"]} '
+        f'launches in {rho_s:.2f} s, {int(np.isfinite(rho).sum())} roots '
+        f'found, rho {np.nanmin(rho):.6f}..{np.nanmax(rho):.6f} M; the host '
+        f'float64 trace of those rays crosses at r within {miss:.3e} M of '
+        f'req (bar {1e-2 * req:g} M, {host_s:.1f} s)')
+    if trace_launches['rho_of_req'] != 42 or not np.isfinite(rho).all() \
+            or not np.isfinite(r_host).all() or miss > 1e-2 * req:
+        raise RuntimeError('synthetic: rho_of_req on the device tracer fails')
+    # the kernel on the largest of those launches, the bracketing scan:
+    # 48 screen radii x 64 azimuths, 400 samples a ray, n_fine 8192
+    rho_grid = np.linspace(1.0, 12.0, 48)[:, None]
+    scan_time = trace_kernel_time(
+        'rho_of_req scan 48x64 at 20 deg', rho_grid * np.cos(phis),
+        rho_grid * np.sin(phis), 0.0, 8192, device, inc=inc, ngeo=400)
+    (_, rho1), rho1_s = traced('rho_of_req_mbar1', lambda:
+                               equatorial.rho_of_req(
+                                   0.0, np.deg2rad(0.01), req, mbar=1,
+                                   ngeo=600, backend='device',
+                                   device=device))
+    ring_dev = float(np.nanmax(np.abs(rho1 - np.sqrt(27.0))))
+    log(f'synthetic rho_of_req(0, 0.01 deg, {req:g} M, mbar 1): '
+        f'{trace_launches["rho_of_req_mbar1"]} launches in {rho1_s:.2f} s, '
+        f'max |rho - sqrt(27)| {ring_dev:.4f} M (< 0.35)')
+    if not np.isfinite(rho1).all() or ring_dev >= 0.35:
+        raise RuntimeError('synthetic: the mbar = 1 ring misses the photon '
+                           'ring')
+    golden, golden_s = traced('gelles_golden', lambda: gelles.golden_face_on(
+        nphi=64, backend='device', device=device))
+    log(f'synthetic Gelles2021 face-on checks on the device tracer '
+        f'({trace_launches["gelles_golden"]} launches, {golden_s:.2f} s): '
+        f'radial B EVPA {np.rad2deg(golden["radial_evpa_dev"]):.4f} deg, '
+        f'toroidal B {np.rad2deg(golden["toroidal_evpa_dev"]):.4f} deg '
+        f'(< 3), vertical B I ratio {golden["vertical_I_ratio"]:.4f} (< 0.2)')
+    g32, _ = traced('tutorial3_table', lambda: image_plane_geos(
+        spin=SPIN, inclination=np.deg2rad(60.0),
+        alpha_range=(-FOV / 2, FOV / 2), beta_range=(-FOV / 2, FOV / 2),
+        ngeo=NGEO, num_alpha=NUM_RAYS, num_beta=NUM_RAYS, n_fine=N_FINE,
+        backend='device', device=device))
+    rings = {}
+    for mbar in (0, 1):
+        rings[mbar] = ring_differences(t3_geos, g32, mbar, N_FINE)
+        log(f'synthetic equatorial_ring(mbar {mbar}) on the Tutorial-3 '
+            f'device table against the host one: {rings[mbar]}')
+        if rings[mbar]['unexplained']:
+            raise RuntimeError('synthetic: equatorial_ring differs where '
+                               'the tables do not explain it')
+    summary['equatorial'] = {
+        'rho_of_req_s': rho_s, 'rho_of_req_launches':
+            trace_launches['rho_of_req'], 'rho_scan_kernel': scan_time,
+        'rho_host_check_s': host_s,
+        'rho_max_miss_M': miss, 'rho_mbar1_max_dev': ring_dev,
+        'gelles': golden, 'gelles_s': golden_s,
+        'ring_differences': {str(k): v for k, v in rings.items()}}
+
+    with tempfile.TemporaryDirectory() as root:
+        # (b) the generator at its defaults, rendered on the card
+        outs, gen_s = {}, {}
+        for source in SYNTH_SOURCES:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[source] = gen.main(['--out', root, '--name', source,
+                                     '--source', source])
+            torch.cuda.synchronize()
+            gen_s[source] = time.perf_counter() - t0
+            lc = np.loadtxt(outs[source]['csv'], delimiter=',', skiprows=1)
+            flare = np.load(outs[source]['flare'])['data']
+            log(f'synthetic generate_synthetic_lightcurves --source {source}'
+                f' (64x64x100 rays, 123 frames, fov 40 M, 60 deg): '
+                f'{gen_s[source]:.1f} s; I {lc[:, 1].min():.4f}.. '
+                f'{lc[:, 1].max():.4f} Jy, |Q|+|U| max '
+                f'{np.abs(lc[:, 2:]).max():.4f} Jy, flare {flare.shape}')
+            if lc.shape != (123, 4) or not np.isfinite(lc).all() \
+                    or not np.abs(lc[:, 2:]).max() > 0 \
+                    or flare.shape != (64, 64, 64):
+                raise RuntimeError(f'synthetic: bad {source} data')
+
+        # the synthetic fit at its configuration, cut to SYNTH_STEPS steps
+        raw = yaml.safe_load(fit.CONFIG_PATH.read_text())
+        raw['optimization']['hparams']['num_iters'] = SYNTH_STEPS
+        cfg_path = os.path.join(root, 'recovery.yaml')
+        with open(cfg_path, 'w') as f:
+            yaml.dump(raw, f)
+        trace = {'ngeo': NGEO, 'n_fine': N_FINE}
+        fused.render_fwd.launches = fused.render_bwd.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        records = fit.run_sweep(outs['hotspot']['yaml'], list(SYNTH_INCS),
+                                [1], MemoryWriter, config_path=cfg_path,
+                                device=device, model_overrides=trace,
+                                verbose=False)
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        launches = (fused.render_fwd.launches, fused.render_bwd.launches)
+        f = records[0]['fit']
+        n_train, opt_cfg = len(f['train']['t']), f['opt_cfg']
+        truth = f['emission_flare'].data
+        zeros_psnr = utils.psnr(truth, torch.zeros_like(truth))
+        logs = SYNTH_STEPS // opt_cfg.log_period
+        expected = (len(SYNTH_INCS) * (SYNTH_STEPS
+                                       + logs * -(-n_train // 20)),
+                    len(SYNTH_INCS) * SYNTH_STEPS)
+        fits = {}
+        for r in records:
+            w = r['writer']
+            losses = [v for _, v in w.scalars['log_loss/train']]
+            psnr = w.scalars['emission/psnr']
+            first, last = np.mean(losses[:20]), np.mean(losses[-20:])
+            fits[str(r['inclination'])] = {
+                'log10_loss_first20': first, 'log10_loss_last20': last,
+                'psnr': psnr, 'datafit': w.scalars['datafit/training']}
+            log(f'synthetic fit {r["run"]}: steps {r["first_step"]}..'
+                f'{r["last_step"]}, mean log10 training loss of the first 20'
+                f' steps {first:.4f} -> last 20 {last:.4f}; psnr against the'
+                f' flare {psnr} (a field of zeros {zeros_psnr:.4f} dB), '
+                f'datafit {w.scalars["datafit/training"]}')
+            if (r['first_step'], r['last_step']) != (1, SYNTH_STEPS) \
+                    or len(losses) != SYNTH_STEPS \
+                    or not np.isfinite(losses).all() or not last < first \
+                    or not np.isfinite([v for _, v in psnr]).all():
+                raise RuntimeError(f'synthetic: bad fit {r["run"]}')
+        log(f'synthetic fit_synthetic_lp_flares sweep: {len(records)} runs '
+            f'of {SYNTH_STEPS} steps in chunks of {opt_cfg.scan_chunk} '
+            f'({n_train} training frames, stokes {f["stokes"]}, batch '
+            f'{opt_cfg.batchsize}) in {sweep_s:.1f} s with the host traces; '
+            f'launches fwd {launches[0]}, bwd {launches[1]} (expected '
+            f'{expected})')
+        if len(records) != len(SYNTH_INCS) or launches != expected:
+            raise RuntimeError(f'synthetic: {len(records)} runs, launches '
+                               f'{launches}')
+        checks = {}
+        t_train = np.asarray(f['train']['t'], np.float32)
+        for r in records:
+            opt = r['optimizer']
+            crt = opt.raytracing_args[0]
+            for batch in (BATCH, 20):
+                c = recovery_kernel_checks(
+                    opt.predictor, crt, t_train, device,
+                    label=f'synthetic fit inc {r["inclination"]:g}',
+                    dtypes=('float32',), batch=batch)
+                checks[f'inc_{r["inclination"]:g}_b{batch}'] = dict(
+                    n=crt.coords.shape[1], float32=c['float32'])
+        # chi^2 of both checkpoints from device-traced tables
+        ckpt_fmt = str(f['recovery_dir'] / fit_alma_lp_apr11_sgra_flare
+                       .RUN_NAME)
+        df, chi2_s = traced('chi2_df', lambda: alma.chi2_df(
+            list(SYNTH_INCS), f['model_params']['spin'], [1],
+            dict(f['model_params'], **trace), ckpt_fmt,
+            units.Quantity(f['train']['t'], 'hr'), f['train']['data'],
+            stokes=f['stokes'], sigma=np.asarray(opt_cfg.sigma),
+            checkpoint_name=f'checkpoint_{SYNTH_STEPS}', backend='device',
+            device=device))
+        chi2 = df.values
+        log(f"synthetic chi2_df(backend='device') at step {SYNTH_STEPS} "
+            f'({chi2_s:.1f} s, {trace_launches["chi2_df"]} tracer launches): '
+            + ', '.join(f'inc {i:g}: {c:.6g}'
+                        for i, c in zip(df.index, chi2[:, 0])))
+        if chi2.shape != (len(SYNTH_INCS), 1) \
+                or not np.isfinite(chi2).all() \
+                or trace_launches['chi2_df'] != len(SYNTH_INCS):
+            raise RuntimeError(f"synthetic: chi2_df(backend='device'): {df}")
+
+        # (c) the chi^2 example's small mode on the device tracer
+        df_small, small_s = traced('chi2_example', lambda:
+                                   recovery_analysis_chi2_grid.main(
+                                       os.path.join(root, 'chi2'),
+                                       small=True, device_geos=True,
+                                       device=device))
+        log(f'synthetic recovery_analysis_chi2_grid --small --device-geos: '
+            f'{small_s:.1f} s, {trace_launches["chi2_example"]} tracer '
+            f'launches, chi^2 '
+            + ', '.join(f'inc {i:g}: {c:.6g}' for i, c in
+                        zip(df_small.index, df_small.values.mean(axis=1))))
+    summary.update({
+        'generate_s': gen_s, 'sweep_s': sweep_s, 'fits': fits,
+        'zeros_psnr': zeros_psnr,
+        'fit_launches': {'fwd': launches[0], 'bwd': launches[1]},
+        'chi2_device': {str(k): float(v) for k, v in zip(df.index,
+                                                         chi2[:, 0])},
+        'chi2_device_s': chi2_s,
+        'chi2_example_small': {str(k): float(v) for k, v in zip(
+            df_small.index, df_small.values.mean(axis=1))},
+        'chi2_example_small_s': small_s,
+        'trace_launches': trace_launches})
+    summary['phase_s'] = time.perf_counter() - t_phase
+    log(f'synthetic phase: {summary["phase_s"]:.1f} s')
+    for i, (entry, kind) in enumerate(zip(kernels, ('fwd', 'bwd'))):
+        entry['synthetic'] = {
+            'launches': launches[i],
+            **{name: dict(n=c['n'], float32=c['float32'][kind])
+               for name, c in checks.items()}}
+    return summary
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2390,7 +2693,11 @@ def main():
     eht = eht_phase(kernels, geos, device)
     trace_entry, device_trace = device_trace_phase(geos, geos_s, alma_host,
                                                    eht, device)
+    synthetic = synthetic_phase(kernels, geos, device)
     trace_entry['fit_chi2_df_launches'] = fit_script['chi2_device_launches']
+    trace_entry['synthetic_launches'] = synthetic['trace_launches']
+    trace_entry['synthetic_rho_scan'] = synthetic['equatorial'][
+        'rho_scan_kernel']
     for entry, count in zip(kernels, launches):
         entry['launches'] = count
         entry['launches_per_step'] = count / STEPS
@@ -2402,6 +2709,7 @@ def main():
         flush=True)
     print(json.dumps({'eht': eht}), flush=True)
     print(json.dumps({'device_trace': device_trace}), flush=True)
+    print(json.dumps({'synthetic': synthetic}), flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -819,3 +819,96 @@ def test_trace_geodesics_device_backend_on_card(cuda_device):
     assert g64.r.dtype == np.float64
     assert compare(table(g), table(g_cpu), 16.0)['ok']
     assert compare(table(g), table(g64), 16.0)['ok']
+
+
+@pytest.mark.cuda
+def test_rho_of_req_device_backend_on_card(cuda_device):
+    """rho_of_req(backend='device') on the card: 1 + iters + 1 tracer
+    launches; every root within two bisection brackets of the plain
+    float32 tracer's (device='cpu') and of the host float64 trace's, and
+    its rays cross the equator within the reference's 1e-2 req of req on
+    the host float64 trace."""
+    from bhnerf_tpu_torch.geodesics import equatorial, integrator
+    inc, req, iters = np.deg2rad(20.0), 6.0, 8
+    kw = dict(varphis=np.linspace(-np.pi, np.pi, 4, endpoint=False),
+              iters=iters, ngeo=48, n_fine=512)
+    bracket = (12.0 - 1.0) / 47 / 2**iters
+    before = integrator.trace_rays.launches
+    _, rho = equatorial.rho_of_req(0.0, inc, req, backend='device',
+                                   device=cuda_device, **kw)
+    assert integrator.trace_rays.launches == before + iters + 2
+    _, rho_plain = equatorial.rho_of_req(0.0, inc, req, backend='device',
+                                         device='cpu', **kw)
+    _, rho_host = equatorial.rho_of_req(0.0, inc, req, **kw)
+    assert integrator.trace_rays.launches == before + iters + 2
+    assert np.isfinite(rho).all()
+    np.testing.assert_array_less(np.abs(rho - rho_plain), 2 * bracket)
+    np.testing.assert_array_less(np.abs(rho - rho_host), 2 * bracket)
+    phis = kw['varphis']
+    r, _ = equatorial.r_equatorial(0.0, np.inf, inc, 0, rho * np.cos(phis),
+                                   rho * np.sin(phis), ngeo=48, n_fine=512)
+    np.testing.assert_array_less(np.abs(r - req), 1e-2 * req)
+
+
+@pytest.mark.cuda
+def test_two_stokes_lc_step_matches_plain_on_card(cuda_device, monkeypatch):
+    """The 'lc' loss of Q and U rows (2-row Stokes weights, the synthetic
+    fit's) with a learnable injection time, compacted in the 'gather'
+    layout on the card: through the kernels against through their plain
+    versions, loss rtol 1e-4, parameter gradients atol 1e-4 after
+    normalising by their max, d loss / d t_injection (the backward's
+    frame-time cotangent) rtol 2e-3; one launch of each kernel."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(7)
+    shape = (8, 8, 16)
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32)).to(
+        cuda_device)
+    rt = step.RayTracingArgs(
+        coords=f32(np.stack([rng.uniform(-7, 7, shape),
+                             rng.uniform(-7, 7, shape),
+                             rng.uniform(-2.5, 2.5, shape)])),
+        Omega=f32(rng.uniform(0.02, 0.08, shape)),
+        J=f32(rng.uniform(-1.0, 1.0, (2, *shape))),
+        g=f32(rng.uniform(0.5, 1.5, shape)),
+        dtau=f32(rng.uniform(0.5, 1.0, shape)),
+        Sigma=f32(rng.uniform(0.5, 1.0, shape)),
+        t_geos_rel=f32(rng.uniform(0.0, 50.0, shape)),
+        t_injection=f32(0.0), t_to_M=100.0, t_units=units.hr)
+    pred = NeRFPredictor(scale=8.0, rmax=8.0, z_width=2.0, net_depth=4,
+                         net_width=128, learn_injection=True)
+    (crt,) = step.compact_ensemble_args([rt], pred, layout='gather')
+    assert crt.num_stokes == 2
+    target = f32(0.1 * rng.standard_normal((3, 2)))
+    sigma = f32(np.full((3, 2), 0.01))
+    t_M = f32([0.0, 7.0, 20.0])
+    results = []
+    for route in ('kernel', 'plain'):
+        if route == 'plain':
+            monkeypatch.setattr(fused, 'render_fwd', fused.render_fwd_plain)
+            monkeypatch.setattr(fused, 'render_bwd', fused.render_bwd_plain)
+        params = pred.init_params(generator=torch.Generator().manual_seed(0),
+                                  device=cuda_device)
+        with torch.no_grad():
+            params.mlp.layers[-1].bias += 8.0
+            params.t_injection += 0.5
+        fused.render_fwd.launches = fused.render_bwd.launches = 0
+        loss, _ = step.loss_fn_image(params, pred, target, sigma,
+                                     torch.zeros_like(target), t_M, crt, 1.0,
+                                     'lc', fused=True)
+        loss.backward()
+        torch.cuda.synchronize()
+        if route == 'kernel':
+            assert (fused.render_fwd.launches,
+                    fused.render_bwd.launches) == (1, 1)
+        results.append((float(loss.detach()),
+                        [p.grad.cpu().numpy()
+                         for p in params.mlp.parameters()],
+                        float(params.t_injection.grad)))
+    (loss_k, grads_k, dt_k), (loss_p, grads_p, dt_p) = results
+    assert np.isfinite(loss_k) and loss_k > 0
+    np.testing.assert_allclose(loss_k, loss_p, rtol=1e-4)
+    for a, b in zip(grads_k, grads_p):
+        scale = np.abs(b).max() + 1e-8
+        np.testing.assert_allclose(a / scale, b / scale, atol=1e-4)
+    assert abs(dt_p) > 0
+    np.testing.assert_allclose(dt_k, dt_p, rtol=2e-3)

@@ -225,7 +225,7 @@ def test_chi2_lightcurves_matches_jax(tmp_path, small_fit, rmin, rmax):
     np.testing.assert_allclose(chi2, ref, rtol=1e-5)
 
 
-def test_chi2_df_refuses_the_device_tracer():
+def test_chi2_df_backend_and_mesh_refusals():
     """chi2_df refuses the device tracer with a mesh (sharding the trace
     is not ported; neither is a mesh with the host trace) and refuses an
     unknown backend, before it does any work. Without a mesh the device
