@@ -17,3 +17,11 @@ from bhnerf_tpu_torch import alma
 from bhnerf_tpu_torch import observation
 from bhnerf_tpu_torch import config
 from bhnerf_tpu_torch import visualization
+# reference-API facades (bhnerf.kgeo / bhnerf.network / bhnerf.optimization)
+from bhnerf_tpu_torch import kgeo
+from bhnerf_tpu_torch import network
+from bhnerf_tpu_torch import optimization
+from bhnerf_tpu_torch.models.fields import (GRID_Predictor, GridPredictor,
+                                            NeRF_Predictor, NeRFPredictor,
+                                            apply_mlp, init_mlp_params,
+                                            posenc, sample_3d_grid)

@@ -24,6 +24,16 @@ from bhnerf_tpu_torch.geodesics import (Geodesics, image_plane_geos,
 from bhnerf_tpu_torch.ops import gr
 from bhnerf_tpu_torch.train import step as step_lib
 
+# the tracer's sizes when the model block does not set them: samples a ray
+# and fine integration steps
+TRACE_DEFAULTS = {'ngeo': 100, 'n_fine': 8192}
+
+
+def trace_sizes(params):
+    """The tracer's sizes (ngeo, n_fine) of a model block: its own where
+    it sets them, else TRACE_DEFAULTS."""
+    return {k: params.get(k, v) for k, v in TRACE_DEFAULTS.items()}
+
 
 def _read_csv(path):
     """A comma-separated file with a header line whose first column is a
@@ -81,9 +91,8 @@ def image_plane_model(inc, spin, params, rot_angle=0.0,
     """Geodesics + Keplerian velocity + normalized fluid-frame B field +
     polarized transport factors (reference alma.py:46-65). params is the
     model block of the fit configuration; its optional keys ngeo and
-    n_fine size the trace (100 samples a ray and 8192 fine steps when
-    absent, the tracer's defaults). rng: np.random.Generator for the
-    sub-pixel jitter. backend='device' traces in float32 on `device`
+    n_fine size the trace (TRACE_DEFAULTS when absent). rng:
+    np.random.Generator for the sub-pixel jitter. backend='device' traces in float32 on `device`
     (geodesics.trace_geodesics); the physics stays host float64."""
     fov_M = params['fov_M']
     geos = image_plane_geos(
@@ -91,7 +100,7 @@ def image_plane_model(inc, spin, params, rot_angle=0.0,
         num_beta=params['num_beta'],
         alpha_range=[-fov_M / 2, fov_M / 2],
         beta_range=[-fov_M / 2, fov_M / 2],
-        ngeo=params.get('ngeo', 100), n_fine=params.get('n_fine', 8192),
+        **trace_sizes(params),
         randomize_subpixel_rays=randomize_subpixel_rays, rng=rng,
         backend=backend, mesh=mesh, device=device)
     return _model_physics(geos, params, rot_angle)
@@ -145,7 +154,7 @@ def _trace_subpixel_ensemble(inc, spin, params, num_variants, rng,
         betas.append(b)
     geos_all = trace_geodesics(
         np.stack(alphas), np.stack(betas), spin, inc,
-        ngeo=params.get('ngeo', 100), n_fine=params.get('n_fine', 8192),
+        **trace_sizes(params),
         backend=backend, mesh=mesh, device=device)
     return [dataclasses.replace(
         geos_all, **{f: getattr(geos_all, f)[v] for f in Geodesics._FIELDS})

@@ -172,12 +172,16 @@ def velocity_warp_matrix(coords_ndim, Omega, t_frames, t_start_obs, t_geos,
 
 def velocity_warp_coords(coords, Omega, t_frames, t_start_obs, t_geos,
                          t_injection, rot_axis=(0, 0, 1),
-                         M=consts.sgra_mass, t_units=None):
+                         M=consts.sgra_mass, t_units=None,
+                         fill_nan=True, return_mask=False):
     """Warp sampling coordinates back to the canonical frame
     (reference emission.py:143-211).
 
-    coords: stacked [x, y, z] with axis 0 the component axis. Returns
-    (warped (..., 3), valid) with zeros, not NaN, in invalid slots.
+    coords: stacked [x, y, z] with axis 0 the component axis. Returns the
+    warped coordinates (..., 3). With `return_mask=True` it returns
+    (warped, valid) with the rotation of invalid slots (before injection)
+    taken at t = t_injection, NaN-free; otherwise, with `fill_nan=True`
+    (the default), invalid slots are NaN, the reference's behaviour.
     """
     coords = _as_tensor(coords)
     Omega = _as_tensor(Omega, coords.device)
@@ -190,8 +194,13 @@ def velocity_warp_coords(coords, Omega, t_frames, t_start_obs, t_geos,
     # the matrix against the component axis of coords with broadcasting
     if theta_rot.ndim >= coords.ndim:  # frame axis prepended
         coords = utils.expand_dims(coords, theta_rot.ndim + 1, 1)
-    warped = torch.sum(inv_rot * coords[None], dim=1)
-    return torch.movedim(warped, 0, -1), valid
+    warped = torch.movedim(torch.sum(inv_rot * coords[None], dim=1), 0, -1)
+    if return_mask:
+        return warped, valid
+    if fill_nan:
+        warped = torch.where(valid[..., None], warped,
+                             torch.full_like(warped, float('nan')))
+    return warped
 
 
 def interpolate_coords(emission, coords):
@@ -204,8 +213,16 @@ def interpolate_coords(emission, coords):
     if not isinstance(emission, utils.Grid3D):
         raise TypeError('interpolate_coords requires a Grid3D field')
     data = emission.data.to(coords.device)
+    idx = utils.world_to_image_coords(coords, emission.fov, data.shape)
+    return map_coordinates_linear(data, idx)
+
+
+def map_coordinates_linear(data, idx):
+    """jax.scipy.ndimage.map_coordinates(data, idx, order=1, cval=0.0) of a
+    3D tensor at image coordinates idx (..., 3): the 8-corner gather with
+    floor weights, an out-of-range corner contributing 0. Differentiable
+    in `data` and `idx`."""
     shape = data.shape
-    idx = utils.world_to_image_coords(coords, emission.fov, shape)
     nodes = []
     for d, size in enumerate(shape):
         lower = torch.floor(idx[..., d])
@@ -282,7 +299,7 @@ def image_plane_dynamics(emission_0, geos, Omega, t_frames, t_injection,
     def render(t_chunk, data_chunk):
         warped, valid = velocity_warp_coords(
             coords, Omega_t, as_t(t_chunk), 0.0, t_geos_rel, 0.0,
-            rot_axis=rot_axis)
+            rot_axis=rot_axis, return_mask=True)
         grid = lambda d: utils.Grid3D(d, emission_0.start, emission_0.stop)
         if not is_movie:
             em = interpolate_coords(grid(data_chunk), warped)
@@ -320,7 +337,7 @@ def propogate_flatspace_emission(emission_0, Omega_3D, t_frames,
         t_start_obs = np.atleast_1d(np.asarray(t_frames))[0]
     warped, valid = velocity_warp_coords(
         coords, _as_tensor(Omega_3D, device), t_frames, t_start_obs, 0.0,
-        0.0, rot_axis=rot_axis, M=M)
+        0.0, rot_axis=rot_axis, M=M, return_mask=True)
     out = interpolate_coords(emission_0, warped)
     return torch.where(valid, out, torch.zeros_like(out))
 

@@ -525,6 +525,10 @@ def render_samples(params, predictor, t_frames_M, coords, omega, tg,
                    t_injection, smask=1.0):
     """Emission on an arbitrary per-sample set via the fused kernels.
     Returns (nt_flat, n) with nt_flat = prod(shape(t_frames_M)) (>= 1)."""
+    if not hasattr(params, 'mlp'):
+        raise TypeError(f'the fused kernels render a NeRF MLP, not '
+                        f'{type(params).__name__}: train this predictor '
+                        f'with fused=False')
     n = int(np.prod(coords.shape[1:]))
     coords_n, omega_n, tg_n, smask_n, _ = _flatten_sample_args(
         coords, omega, tg, smask, n)

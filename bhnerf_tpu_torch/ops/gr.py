@@ -304,3 +304,7 @@ def radiative_transfer(emission, g, dtau, Sigma):
     dtau = utils.expand_dims(dtau, ndim)
     Sigma = utils.expand_dims(Sigma, ndim)
     return torch.sum(g**2 * emission * dtau * Sigma, dim=-1)
+
+
+# the reference's spelling (reference kgeo.py:595-622)
+radiative_trasfer = radiative_transfer

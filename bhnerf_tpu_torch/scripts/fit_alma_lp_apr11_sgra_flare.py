@@ -7,11 +7,17 @@ grid x seeds, with tensorboard logging and resumable runs, on the card:
     python -m bhnerf_tpu_torch.scripts.fit_alma_lp_apr11_sgra_flare 60 \\
         --seeds 1 2 --data_path ../data/Apr11_HI.dat
 
-It reads the same configuration (scripts/fit_alma_lp_apr11_sgra_flare.yaml
-beside the JAX package) and takes the same arguments. A run directory that
-exists is skipped; with --resume an unfinished run continues from its
-latest checkpoint to the configured number of iterations. DRIVE_CPU=1 in
-the environment runs on the host. `run_sweep` is the sweep itself, for
+It reads the same configuration (fit_alma_lp_apr11_sgra_flare.yaml beside
+this file, a copy of the JAX package's) and takes the same arguments. A
+run directory that exists is skipped; with --resume an unfinished run
+continues from its latest checkpoint to the configured number of
+iterations. DRIVE_CPU=1 in the environment runs on the host. Beyond the
+reference's arguments: `--writer memory` keeps the logs in memory
+(train.logging.MemoryWriter) instead of writing tensorboard events, for
+machines without tensorboardX; `--ngeo` and `--n_fine` size the geodesic
+tables (alma.TRACE_DEFAULTS when absent). Each run prints the device of
+its parameters as a `# torch device:` line; at its end the script prints
+the kernel launches it made as a `# launches:` JSON line. `run_sweep` is the sweep itself, for
 callers that bring their own writer (train.logging.MemoryWriter); its
 loop, `run_grid`, also runs fit_synthetic_lp_flares' sweep;
 `write_synthetic_observation` writes a seeded lightcurve in the data
@@ -26,8 +32,7 @@ from pathlib import Path
 
 import numpy as np
 
-CONFIG_PATH = (Path(__file__).resolve().parents[2] / 'scripts'
-               / 'fit_alma_lp_apr11_sgra_flare.yaml')
+CONFIG_PATH = Path(__file__).with_name('fit_alma_lp_apr11_sgra_flare.yaml')
 RUN_NAME = 'inc_{:.1f}.seed_{}'
 
 
@@ -50,6 +55,17 @@ def parse_args(argv=None):
                              'checkpoint instead of skipping existing run '
                              'directories. Finished runs are still '
                              'skipped.')
+    parser.add_argument('--writer', choices=('tensorboard', 'memory'),
+                        default='tensorboard',
+                        help='tensorboard: event files under log_dir (needs '
+                             'tensorboardX); memory: keep the logs in '
+                             'memory (no tensorboardX or matplotlib)')
+    parser.add_argument('--ngeo', type=int,
+                        help='Samples a ray of the geodesic tables '
+                             '(default: alma.TRACE_DEFAULTS)')
+    parser.add_argument('--n_fine', type=int,
+                        help='Fine steps of the geodesic tracer '
+                             '(default: alma.TRACE_DEFAULTS)')
     return parser.parse_args(argv)
 
 
@@ -143,6 +159,8 @@ def run_grid(inc_grid, seeds, trace, predictor, train_step, make_log_fns,
                                   save_period=opt_cfg.save_period,
                                   checkpoint_dir=str(checkpoint_dir),
                                   device=device)
+            say(f'# torch device: '
+                f'{next(optimizer.params.parameters()).device}', flush=True)
             if resuming:
                 # the Optimizer restored the latest checkpoint; num_iters
                 # counts from there, so finish the configured total
@@ -222,22 +240,39 @@ def write_synthetic_observation(path, t_start=9.30, t_end=11.85,
     return str(path)
 
 
+def launch_counts():
+    """The kernel launches of this process so far: the fused forward and
+    backward and the geodesic tracer."""
+    from bhnerf_tpu_torch.geodesics import integrator
+    from bhnerf_tpu_torch.ops import fused
+    return {'render_fwd': fused.render_fwd.launches,
+            'render_bwd': fused.render_bwd.launches,
+            'trace_rays': integrator.trace_rays.launches}
+
+
 def main(argv=None):
-    # fail fast: the run's logging needs tensorboardX
-    import tensorboardX  # noqa: F401
+    import json
+
     from bhnerf_tpu_torch import config as config_lib
-    from bhnerf_tpu_torch.train.logging import SummaryWriter
+    from bhnerf_tpu_torch.train.logging import MemoryWriter, SummaryWriter
 
     args = parse_args(argv)
+    if args.writer == 'tensorboard':
+        # fail fast: the run's logging needs tensorboardX
+        import tensorboardX  # noqa: F401
     device = 'cpu' if os.environ.get('DRIVE_CPU') else 'cuda'
-    print(f'# torch device: {device}', flush=True)
     cfg = config_lib.RunConfig.from_yaml(args.config_path)
     if args.data_path:
         cfg.preprocess.data_path = args.data_path
     inc_grid = config_lib.inclination_grid(args.inc, args.start_inc)
     seeds = args.seeds if args.seeds else [cfg.optimization.hparams.seed]
-    run_sweep(cfg, inc_grid, seeds, SummaryWriter, resume=args.resume,
-              device=device)
+    overrides = {k: v for k, v in (('ngeo', args.ngeo),
+                                   ('n_fine', args.n_fine)) if v}
+    extra = {'model_overrides': overrides} if overrides else {}
+    writer = SummaryWriter if args.writer == 'tensorboard' else MemoryWriter
+    run_sweep(cfg, inc_grid, seeds, writer, resume=args.resume,
+              device=device, **extra)
+    print(f'# launches: {json.dumps(launch_counts())}', flush=True)
 
 
 if __name__ == '__main__':

@@ -13,10 +13,16 @@ The first argument is the simulation's yaml; the recovery configuration
 over its model block, key by key. Frames up to train_split minutes after
 t_start_obs train the fit. Runs live in recovery/<name>/<run> beside the
 lightcurve file, with their tensorboard logs; a run directory that exists
-is skipped. DRIVE_CPU=1 in the environment runs on the host. `run_sweep`
-is the sweep itself, for callers that bring their own writer
-(train.logging.MemoryWriter); its loop is the ALMA fit script's
-`run_grid`.
+is skipped. DRIVE_CPU=1 in the environment runs on the host. Beyond the
+reference's arguments, `--writer memory` keeps the logs in memory
+(train.logging.MemoryWriter) instead of writing tensorboard events, for
+machines without tensorboardX, and then prints a `# summary:` JSON line
+for each run that trained (its losses, the last psnr against the flare
+and the chi^2 of its last checkpoint on the training frames,
+alma.chi2_lightcurves); at its end the script prints its kernel
+launches as a `# launches:` JSON line. `run_sweep` is the sweep itself,
+for callers that bring their own writer (train.logging.MemoryWriter);
+its loop is the ALMA fit script's `run_grid`.
 """
 from __future__ import annotations
 
@@ -39,6 +45,11 @@ def parse_args(argv=None):
     parser.add_argument('--start_inc', type=float)
     parser.add_argument('--seeds', type=int, nargs='+')
     parser.add_argument('--config_path', type=str, default=str(CONFIG_PATH))
+    parser.add_argument('--writer', choices=('tensorboard', 'memory'),
+                        default='tensorboard',
+                        help='tensorboard: event files beside the runs '
+                             '(needs tensorboardX); memory: keep the logs '
+                             'in memory and print a summary of each run')
     return parser.parse_args(argv)
 
 
@@ -153,20 +164,54 @@ def run_sweep(yaml_path, inc_grid, seeds, writer_factory,
     return records
 
 
+def summary(record):
+    """A run's summary: steps, the mean log10 training loss of its first and
+    last 20 steps, the first and last logged psnr against the flare (None
+    without one) and the chi^2 of its last checkpoint on the training
+    frames over its ensemble (alma.chi2_lightcurves)."""
+    from bhnerf_tpu_torch import alma, units
+
+    w, opt, fit = record['writer'], record['optimizer'], record['fit']
+    losses = [v for _, v in w.scalars['log_loss/train']]
+    psnr = w.scalars.get('emission/psnr')
+    train = fit['train']
+    chi2 = alma.chi2_lightcurves(
+        opt.raytracing_args, opt.checkpoint_dir,
+        units.Quantity(train['t'], 'hr'), train['data'],
+        sigma=np.asarray(fit['opt_cfg'].sigma))
+    return {'run': record['run'], 'first_step': record['first_step'],
+            'last_step': record['last_step'],
+            'log10_loss_first20': float(np.mean(losses[:20])),
+            'log10_loss_last20': float(np.mean(losses[-20:])),
+            'psnr_first': psnr[0][1] if psnr else None,
+            'psnr': psnr[-1][1] if psnr else None,
+            'chi2_train': float(chi2)}
+
+
 def main(argv=None):
-    # fail fast: the run's logging needs tensorboardX
-    import tensorboardX  # noqa: F401
+    import json
+
     from bhnerf_tpu_torch import config as config_lib
-    from bhnerf_tpu_torch.train.logging import SummaryWriter
+    from bhnerf_tpu_torch.scripts.fit_alma_lp_apr11_sgra_flare import (
+        launch_counts)
+    from bhnerf_tpu_torch.train.logging import MemoryWriter, SummaryWriter
 
     args = parse_args(argv)
+    if args.writer == 'tensorboard':
+        # fail fast: the run's logging needs tensorboardX
+        import tensorboardX  # noqa: F401
     device = 'cpu' if os.environ.get('DRIVE_CPU') else 'cuda'
-    print(f'# torch device: {device}', flush=True)
     recovery = config_lib.RunConfig.from_yaml(args.config_path)
     inc_grid = config_lib.inclination_grid(args.inc, args.start_inc)
     seeds = args.seeds if args.seeds else [recovery.optimization.hparams.seed]
-    run_sweep(args.yaml_path, inc_grid, seeds, SummaryWriter,
-              config_path=args.config_path, device=device)
+    memory = args.writer == 'memory'
+    records = run_sweep(args.yaml_path, inc_grid, seeds,
+                        MemoryWriter if memory else SummaryWriter,
+                        config_path=args.config_path, device=device)
+    if memory:
+        for record in records:
+            print(f'# summary: {json.dumps(summary(record))}', flush=True)
+    print(f'# launches: {json.dumps(launch_counts())}', flush=True)
 
 
 if __name__ == '__main__':

@@ -504,7 +504,8 @@ def predict_emission(params, predictor, t_frames_M, rt: RayTracingArgs):
     PyTorch)."""
     warped, valid = emission_lib.velocity_warp_coords(
         rt.coords, rt.Omega, t_frames_M, 0.0, rt.t_geos_rel,
-        learned_t_injection(params, rt.t_injection), t_units=None)
+        learned_t_injection(params, rt.t_injection), t_units=None,
+        return_mask=True)
     return predictor.emission_at(params, warped, valid, rt.coords)
 
 
@@ -513,7 +514,7 @@ def _compact_emission(params, predictor, t_frames_M, crt: CompactRayArgs,
     """Per-sample emission over compact samples: (F, n) for flat frames."""
     n = crt.coords.shape[-1]
     t_shape = tuple(t_frames_M.shape)
-    fused = fused and predictor.out_channel == 1
+    fused = fused and getattr(predictor, 'out_channel', 1) == 1
     if fused:
         em = fused_lib.render_samples(
             params, predictor, t_frames_M, crt.coords, crt.Omega,
@@ -522,7 +523,8 @@ def _compact_emission(params, predictor, t_frames_M, crt: CompactRayArgs,
     else:
         warped, valid = emission_lib.velocity_warp_coords(
             crt.coords, crt.Omega, t_frames_M, 0.0, crt.t_geos_rel,
-            learned_t_injection(params, crt.t_injection), t_units=None)
+            learned_t_injection(params, crt.t_injection), t_units=None,
+            return_mask=True)
         warped = torch.broadcast_to(warped, (*t_shape, n, 3))
         valid = torch.broadcast_to(valid, (*t_shape, n))
         emission = predictor.emission_at(params, warped, valid, crt.coords)
@@ -589,7 +591,7 @@ def image_plane_prediction(params, predictor, t_frames_M, rt, fused=False):
     if isinstance(rt, CompactRayArgs):
         return _compact_prediction(params, predictor, t_frames_M, rt,
                                    fused=fused)
-    if fused and predictor.out_channel == 1:
+    if fused and getattr(predictor, 'out_channel', 1) == 1:
         emission = fused_lib.predict_emission_fused(
             params, predictor, t_frames_M, rt)
     else:

@@ -118,9 +118,19 @@ Phases (any failure raises and exits non-zero):
      chi2_df(backend='device') over its checkpoints (one launch an
      inclination), and the chi^2 example's small mode on the device
      tracer.
-The six lines before the last are the JSON recovery, chunked-loop, EHT,
-device-trace and synthetic summaries and the JSON kernel summary; the
-last line is {"ok": true, "device": {...}}.
+  13. the ALMA production drive (lines starting `production`):
+     bhnerf_tpu_torch.scripts.drive_alma_production at full width (64x64
+     rays x 100 samples, 4x128, a 10-variant ensemble, batch 6, chunks of
+     500) cut to PROD_STEPS steps with its host tables at PROD_N_FINE:
+     leg 1 in a child process stopped by SIGTERM after its first periodic
+     checkpoint, leg 2 resumed from that step to PROD_STEPS through the
+     fit's --resume, finite train and validation chi^2 over a fresh
+     10-variant ensemble, one forward and one backward launch a training
+     step (the children print their counts); both kernels against their
+     plain versions in float32 at the fit's N.
+The seven lines before the last are the JSON recovery, chunked-loop, EHT,
+device-trace, synthetic and production summaries and the JSON kernel
+summary; the last line is {"ok": true, "device": {...}}.
 """
 import concurrent.futures
 import contextlib
@@ -207,6 +217,13 @@ TRACE_CHECK_N_FINE = 2048
 SYNTH_SOURCES = ('hotspot', 'tube')
 SYNTH_INCS = (40.0, 60.0)
 SYNTH_STEPS = 500
+# the production phase: the ALMA production drive at full width (64x64
+# rays x 100 samples, 4x128, a 10-variant ensemble, batch 6, chunks of
+# 500), cut to PROD_STEPS steps (a checkpoint every 500, SIGTERM after the
+# first) and its 30 host tables to PROD_N_FINE fine steps (below 512 a
+# table costs no less: its second pass and the physics dominate)
+PROD_STEPS = 1500
+PROD_N_FINE = 512
 # float32 operations of one RK4 step of the tracer (ops/csrc/
 # geodesic_trace.cu), each division counted as one: four right-hand sides
 # of 40 operations and 4 divisions, 24 stage updates, the step h/6 and
@@ -2644,6 +2661,70 @@ def synthetic_phase(kernels, t3_geos, device):
     return summary
 
 
+def production_phase(kernels, device):
+    """The ALMA production drive (bhnerf_tpu_torch.scripts.
+    drive_alma_production) at full width and cut depth: leg 1 runs the
+    fit script in a child process (--writer memory) on the seeded
+    Apr11-like lightcurve with the 10-variant ensemble and is sent SIGTERM
+    once checkpoint_<save period> exists; leg 2 resumes it through
+    --resume to PROD_STEPS; then chi^2 of the train and validation frames
+    over a fresh 10-variant ensemble. Fails unless leg 2 resumed at leg
+    1's stop, both chi^2 are finite and every training step launched one
+    forward and one backward kernel. Then both kernels against their
+    plain versions in float32 at the fit's N: variant 0 of the
+    evaluation's ensemble, compacted as the fit compacts its ensemble.
+    Fills the production block of the JSON kernel entries and returns the
+    phase's summary."""
+    import tempfile
+    import torch
+    from bhnerf_tpu_torch.models.fields import NeRFPredictor
+    from bhnerf_tpu_torch.scripts import drive_alma_production as prod
+    from bhnerf_tpu_torch.train import compact_ensemble_args
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        result, evaluation = prod.drive(PROD_STEPS, work, n_fine=PROD_N_FINE,
+                                        log=lambda m: log(f'production {m}'))
+        run_dir = os.path.join(work, 'ckpt', 'inc_60.0.seed_4')
+        predictor = NeRFPredictor.from_yml(run_dir)
+    drive_s = time.perf_counter() - t_phase
+    parts = result['launches']
+    launches = {k: sum(p[k] for p in parts.values())
+                for k in ('render_fwd', 'render_bwd', 'trace_rays')}
+    stop = result['interrupt_step']
+    log(f'production drive: {PROD_STEPS} steps, ensemble '
+        f'{result["ensemble"]}, batch {result["batchsize"]}, SIGTERM at step '
+        f'{stop}, resumed to {PROD_STEPS}; chi2 train '
+        f'{result["chi2_train"]}, validation {result["chi2_val"]}; '
+        f'{drive_s:.1f} s ({result["steps_per_sec_effective"]} steps/s '
+        f'effective, evaluation {result["evaluate_s"]} s); launches '
+        f'{parts} (n_fine {PROD_N_FINE})')
+    train_bwd = (parts['leg1']['render_bwd'], parts['leg2']['render_bwd'])
+    if not result['ok'] or result['ensemble'] != 10 \
+            or not 0 < stop < PROD_STEPS \
+            or train_bwd != (stop, PROD_STEPS - stop) \
+            or parts['leg1']['render_fwd'] <= stop \
+            or parts['leg2']['render_fwd'] <= PROD_STEPS - stop \
+            or parts['evaluate']['render_fwd'] == 0:
+        raise RuntimeError(f'production drive: {result}')
+
+    rts = evaluation['raytracing_args']
+    crt = compact_ensemble_args(rts, predictor, layout='gather')[0]
+    checks = recovery_kernel_checks(
+        predictor, crt, np.asarray(evaluation['t_train'], np.float32),
+        device, label='production variant 0', dtypes=('float32',))
+    phase_s = time.perf_counter() - t_phase
+    log(f'production phase: {phase_s:.1f} s')
+    for entry, kind, key in zip(kernels, ('fwd', 'bwd'),
+                                ('render_fwd', 'render_bwd')):
+        entry['production'] = {'launches': launches[key],
+                               'n': crt.coords.shape[1],
+                               'float32': checks['float32'][kind]}
+    return dict(result, drive_s=drive_s, phase_s=phase_s,
+                n=crt.coords.shape[1], n_fine=PROD_N_FINE,
+                launches_total=launches)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2694,6 +2775,9 @@ def main():
     trace_entry, device_trace = device_trace_phase(geos, geos_s, alma_host,
                                                    eht, device)
     synthetic = synthetic_phase(kernels, geos, device)
+    production = production_phase(kernels, device)
+    trace_entry['production_launches'] = production['launches_total'][
+        'trace_rays']
     trace_entry['fit_chi2_df_launches'] = fit_script['chi2_device_launches']
     trace_entry['synthetic_launches'] = synthetic['trace_launches']
     trace_entry['synthetic_rho_scan'] = synthetic['equatorial'][
@@ -2710,6 +2794,7 @@ def main():
     print(json.dumps({'eht': eht}), flush=True)
     print(json.dumps({'device_trace': device_trace}), flush=True)
     print(json.dumps({'synthetic': synthetic}), flush=True)
+    print(json.dumps({'production': production}), flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

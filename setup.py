@@ -9,7 +9,8 @@ setup(
     packages=find_packages(include=['bhnerf_tpu', 'bhnerf_tpu.*',
                                     'bhnerf_tpu_torch', 'bhnerf_tpu_torch.*']),
     # the PyTorch port builds its CUDA kernels from these sources at first use
-    package_data={'bhnerf_tpu_torch.ops': ['csrc/*.cu']},
+    package_data={'bhnerf_tpu_torch.ops': ['csrc/*.cu'],
+                  'bhnerf_tpu_torch.scripts': ['*.yaml']},
     python_requires='>=3.10',
     install_requires=['jax', 'numpy', 'optax', 'pyyaml'],
     extras_require={

@@ -912,3 +912,164 @@ def test_two_stokes_lc_step_matches_plain_on_card(cuda_device, monkeypatch):
         np.testing.assert_allclose(a / scale, b / scale, atol=1e-4)
     assert abs(dt_p) > 0
     np.testing.assert_allclose(dt_k, dt_p, rtol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('weights', ['polarized', 'random_sign'])
+def test_production_ensemble_step_matches_plain_on_card(cuda_device,
+                                                        monkeypatch, weights):
+    """A step of the production ALMA fit's shape on the card: two seeded
+    64x64x100 ray tables, compacted together in the 'gather' layout (one
+    padded N of about 48k), the 4x128 MLP, 6 frames of a 20-frame 'lc'
+    target. The I, Q and U weights are those of a polarized source (a
+    positive I factor, Q and U at 30% of it along an EVPA that turns with
+    the azimuth) or uniform in [-1, 1] with random signs, whose sums
+    cancel. A TrainStep on each variant launches each kernel once. On
+    each variant the 'lc' loss and its parameter gradients go through the
+    kernels, through their plain versions in float32, and through the
+    plain (unfused) path in float64, the witness. The kernels' loss is
+    within rtol 1e-4 of the plain version's; the error of the kernels'
+    gradients against the witness (max over layers of the max abs
+    difference over the witness's max) is at most twice the plain float32
+    version's; for the polarized source the kernels' gradients are also
+    within atol 1e-4 of the plain version's after normalising by the
+    max. On an H100 the two errors were 8.5e-6 / 8.3e-6 and 6.2e-6 /
+    4.3e-6 for the polarized source and 1.28e-3 / 1.28e-3 and 3.46e-3 /
+    3.41e-3 with random signs: there the float32 sums lose digits to
+    cancellation, in the kernels as in the plain version."""
+    import dataclasses
+
+    from bhnerf_tpu_torch.train.optimizer import TrainStep
+    from bhnerf_tpu_torch.train.state import TrainState, make_optimizer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(11)
+    shape = (64, 64, 100)
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32)).to(
+        cuda_device)
+
+    def stokes_factors(x, y):
+        if weights == 'random_sign':
+            return rng.uniform(-1.0, 1.0, (3, *shape))
+        I = rng.uniform(0.5, 1.5, shape)
+        chi = 0.5 * np.arctan2(y, x) + 0.3
+        return np.stack([I, 0.3 * I * np.cos(2 * chi),
+                         0.3 * I * np.sin(2 * chi)])
+
+    xs = [rng.uniform(-20, 20, (2, *shape)) for _ in range(2)]
+    rts = [step.RayTracingArgs(
+        coords=f32(np.stack([x, y, rng.uniform(-6, 6, shape)])),
+        Omega=f32(rng.uniform(0.005, 0.07, shape)),
+        J=f32(stokes_factors(x, y)),
+        g=f32(rng.uniform(0.5, 1.5, shape)),
+        dtau=f32(rng.uniform(0.01, 0.02, shape)),
+        Sigma=f32(rng.uniform(10, 100, shape)),
+        t_geos_rel=f32(rng.uniform(0.0, 50.0, shape)),
+        t_injection=f32(0.0), t_to_M=100.0, t_units=units.hr)
+        for x, y in xs]
+    pred = NeRFPredictor(scale=20.0, rmin=6.0, rmax=20.0, z_width=4.0)
+    crts = step.compact_ensemble_args(rts, pred, layout='gather')
+    assert crts[0].coords.shape == crts[1].coords.shape
+    t_q = units.Quantity(np.linspace(9.34, 10.9, 20), 'hr')
+    target = 0.1 * rng.standard_normal((20, 3))
+    sigma = np.array([0.15, 1e-2, 1e-2])
+    train_step = TrainStep.image(t_q, target, pred, sigma=sigma, dtype='lc',
+                                 fused=True, device=cuda_device)
+    idx = np.sort(rng.choice(20, 6, replace=False))
+
+    def fresh_params():
+        params = pred.init_params(generator=torch.Generator().manual_seed(0),
+                                  device=cuda_device)
+        with torch.no_grad():
+            params.mlp.layers[-1].bias += 8.0
+        return params
+
+    def as_float64(crt):
+        return dataclasses.replace(crt, **{
+            f.name: getattr(crt, f.name).double()
+            for f in dataclasses.fields(crt)
+            if torch.is_tensor(getattr(crt, f.name))
+            and getattr(crt, f.name).is_floating_point()})
+
+    for variant in (0, 1):
+        state = TrainState.create(fresh_params(), make_optimizer(10))
+        fused.render_fwd.launches = fused.render_bwd.launches = 0
+        loss, state, _ = train_step(state, crts, torch.as_tensor(idx),
+                                    variant=variant)
+        assert np.isfinite(float(loss))
+        assert (fused.render_fwd.launches,
+                fused.render_bwd.launches) == (1, 1)
+
+    t_M = crts[0].frame_times_M(np.asarray(t_q.value[idx], np.float32))
+    results = {}
+    for route in ('witness', 'kernel', 'plain'):
+        if route == 'plain':
+            monkeypatch.setattr(fused, 'render_fwd', fused.render_fwd_plain)
+            monkeypatch.setattr(fused, 'render_bwd', fused.render_bwd_plain)
+        put = f32 if route != 'witness' else (
+            lambda x: torch.as_tensor(np.asarray(x, np.float64)).to(
+                cuda_device))
+        for variant in (0, 1):
+            params, crt = fresh_params(), crts[variant]
+            if route == 'witness':
+                params, crt = params.double(), as_float64(crt)
+            loss, _ = step.loss_fn_image(
+                params, pred, put(target[idx]), put(np.ones((6, 3)) * sigma),
+                put(np.zeros((6, 3))), put(t_M), crt, 1.0, 'lc',
+                fused=route != 'witness')
+            loss.backward()
+            torch.cuda.synchronize()
+            results[route, variant] = (
+                float(loss.detach()), [p.grad.double().cpu().numpy()
+                                       for p in params.mlp.parameters()])
+
+    def grad_error(route, variant):
+        return max(np.abs(a - b).max() / np.abs(b).max()
+                   for a, b in zip(results[route, variant][1],
+                                   results['witness', variant][1]))
+
+    for variant in (0, 1):
+        (loss_k, g_k), (loss_p, g_p) = (results['kernel', variant],
+                                        results['plain', variant])
+        err_k, err_p = grad_error('kernel', variant), grad_error('plain',
+                                                                  variant)
+        print(f'{weights} variant {variant}: loss kernel {loss_k!r}, plain '
+              f'{loss_p!r}, witness {results["witness", variant][0]!r}; '
+              f'gradient error against the witness: kernel {err_k:.3e}, '
+              f'plain {err_p:.3e}')
+        assert np.isfinite(loss_k) and loss_k > 0
+        np.testing.assert_allclose(loss_k, loss_p, rtol=1e-4)
+        assert err_k <= 2 * err_p, (err_k, err_p)
+        if weights == 'polarized':
+            for a, b in zip(g_k, g_p):
+                scale = np.abs(b).max() + 1e-8
+                np.testing.assert_allclose(a / scale, b / scale, atol=1e-4)
+    assert results['kernel', 0][0] != results['kernel', 1][0]
+
+
+@pytest.mark.cuda
+def test_grid_predictor_on_card_matches_cpu(cuda_device):
+    """GridPredictor's trilinear lookup (points beyond the grid included),
+    its emission and the gradient of a loss on its grid, on the card
+    against the same calls on the host: emission atol 1e-6, gradient
+    atol 1e-6 after normalising by its max."""
+    from bhnerf_tpu_torch.models.fields import GridPredictor
+    rng = np.random.default_rng(5)
+    pred = GridPredictor(scale=4.0, rmin=1.0, rmax=5.0, z_width=2.0,
+                         grid_res=16)
+    grid = rng.normal(8.0, 4.0, (16, 16, 16)).astype(np.float32)
+    warped = rng.uniform(-5.2, 5.2, (6, 500, 3)).astype(np.float32)
+    valid = rng.random((6, 500)) < 0.8
+    coords = rng.uniform(-6, 6, (3, 500)).astype(np.float32)
+    out = {}
+    for device in ('cpu', cuda_device):
+        params = pred.params_from_jax({'grid': grid}, device=device)
+        put = lambda x: torch.as_tensor(x).to(device)
+        em = pred.emission_at(params, put(warped), put(valid), put(coords))
+        (em ** 2).sum().backward()
+        out[str(device)] = (em.detach().cpu().numpy(),
+                            params.grid.grad.cpu().numpy())
+    (em_h, g_h), (em_d, g_d) = out['cpu'], out[str(cuda_device)]
+    assert np.abs(em_h).max() > 0
+    np.testing.assert_allclose(em_d, em_h, atol=1e-6, rtol=0)
+    scale = np.abs(g_h).max()
+    np.testing.assert_allclose(g_d / scale, g_h / scale, atol=1e-6, rtol=0)
