@@ -93,7 +93,8 @@ def image_plane_model(inc, spin, params, rot_angle=0.0,
     model block of the fit configuration; its optional keys ngeo and
     n_fine size the trace (TRACE_DEFAULTS when absent). rng:
     np.random.Generator for the sub-pixel jitter. backend='device' traces in float32 on `device`
-    (geodesics.trace_geodesics); the physics stays host float64."""
+    (geodesics.trace_geodesics), over the ranks of `mesh` when one is
+    given; the physics stays host float64, on every rank."""
     fov_M = params['fov_M']
     geos = image_plane_geos(
         spin, inc, num_alpha=params['num_alpha'],
@@ -141,7 +142,8 @@ def _trace_subpixel_ensemble(inc, spin, params, num_variants, rng,
     back into per-variant Geodesics. The jitter is drawn by
     subpixel_jittered_axes variant after variant, the alpha axis before
     the beta axis, so a seed gives the grids of the per-variant
-    image_plane_geos loop and of the JAX package."""
+    image_plane_geos loop and of the JAX package. Under a `mesh` each rank
+    launches once, on its block of every variant's rays."""
     num_alpha, num_beta = params['num_alpha'], params['num_beta']
     fov_M = params['fov_M']
     rng = np.random.default_rng() if rng is None else rng
@@ -169,7 +171,9 @@ def get_raytracing_args(inc, spin, params, stokes=('I', 'Q', 'U'),
     sub-pixel jitter drawn from `rng` (one regular grid when
     num_subpixel_rays is 1). backend='cpu' traces each table on the host
     in float64; backend='device' traces in float32 on `device`, the whole
-    ensemble in one launch (_trace_subpixel_ensemble)."""
+    ensemble in one launch (_trace_subpixel_ensemble), or one launch a
+    rank over the ranks of `mesh` (reference alma.py:131-152). The host
+    physics runs on every rank on the whole table."""
     J_inds = [['I', 'Q', 'U'].index(s) for s in stokes]
     randomize = num_subpixel_rays > 1
     geos_list = (_trace_subpixel_ensemble(inc, spin, params,
@@ -246,17 +250,17 @@ def chi2_df(inclinations, spins, seeds, params, checkpoint_fmt, t, data,
     which is `checkpoint_name` only if no later one was saved. The ray
     constants are traced on the host
     once per grid point, on the host in float64 (backend='cpu') or in float32
-    on `device` (backend='device'), and live on `device`. A device mesh is
-    not ported."""
+    on `device` (backend='device'), and live on `device`. `mesh` shards
+    each trace's rays over its ranks (backend='device' only; reference
+    alma.py:204-239); every rank then scores every cell."""
     import pandas as pd
 
     if backend not in ('cpu', 'device'):
         raise ValueError(f"backend must be 'cpu' or 'device', got "
                          f'{backend!r}')
-    if mesh is not None:
-        raise NotImplementedError(
-            'mesh-sharded tracing is not ported; chi2_df traces on one '
-            'device')
+    if mesh is not None and backend != 'device':
+        raise ValueError("mesh-sharded tracing requires backend='device' "
+                         '(the host float64 trace is one process)')
     inclinations = np.atleast_1d(inclinations)
     spins = np.atleast_1d(spins)
     if len(inclinations) == 1 and len(spins) > 1:
@@ -280,7 +284,8 @@ def chi2_df(inclinations, spins, seeds, params, checkpoint_fmt, t, data,
             if inc_prev != inc or spin_prev != spin:
                 rt_args = get_raytracing_args(
                     np.deg2rad(inc), spin, params, stokes, rot_angle,
-                    num_subpixel_rays, backend=backend, device=device)
+                    num_subpixel_rays, backend=backend, mesh=mesh,
+                    device=device)
                 inc_prev, spin_prev = inc, spin
             data_fit[i, j] = chi2_lightcurves(rt_args, checkpoint_dir, t,
                                               data, sigma)

@@ -210,8 +210,18 @@ def trace_geodesics(alpha, beta, spin, inclination, ngeo=100, distance=1000.0,
     bars). As in the reference, r, theta and phi come out in the trace
     dtype, t = t - t_c folded in float64 on the host, and alpha, beta,
     lam, eta and tau_final in the trace dtype. Every ray is independent,
-    so the rays are traced as given (no padding). `mesh` (sharding the
-    rays over cards) is not ported."""
+    so the rays are traced as given (no padding).
+
+    mesh (parallel.mesh.Mesh, backend='device' only; reference
+    dataset.py:289-305): the flat ray list is padded with copies of its
+    last ray to a multiple of the mesh's size, each rank launches the
+    tracer on its contiguous block alone, and the table is assembled on
+    every rank by one all-reduce of zeroed full-size buffers that hold
+    each rank's block (adding zeros is exact, so the result is bitwise
+    the concatenation of the blocks). One thread traces one ray, so the
+    kernel's table equals the one-process trace bitwise; the plain
+    version on the CPU may differ in the last bits, its vectorised
+    arithmetic depending on the block's length."""
     if not 0.0 <= spin < 1.0:
         raise ValueError(f'spin must be in [0, 1), got {spin}')
     if not (E == 1.0 and M == 1.0):
@@ -232,9 +242,9 @@ def trace_geodesics(alpha, beta, spin, inclination, ngeo=100, distance=1000.0,
     elif dtype is None:
         dtype = np.float64
     dtype = np.dtype(dtype)
-    if mesh is not None:
-        raise NotImplementedError(
-            'mesh-sharded tracing is not ported; trace on one device')
+    if mesh is not None and backend != 'device':
+        raise ValueError("mesh-sharded tracing requires backend='device' "
+                         '(the host float64 trace is one process)')
 
     # exactly polar observers hit the phi coordinate singularity; nudge
     # off the axis (physically indistinguishable at 1e-6 rad)
@@ -243,16 +253,28 @@ def trace_geodesics(alpha, beta, spin, inclination, ngeo=100, distance=1000.0,
     alpha_flat = np.ravel(np.asarray(alpha, dtype))
     beta_flat = np.ravel(np.asarray(beta, dtype))
 
+    npix = alpha_flat.size
+    if mesh is not None and npix % mesh.size:
+        fill = np.full(mesh.size - npix % mesh.size, -1)
+        alpha_flat = np.concatenate([alpha_flat, alpha_flat[fill]])
+        beta_flat = np.concatenate([beta_flat, beta_flat[fill]])
     state0, lam, eta = integrator.initial_state(
         alpha_flat, beta_flat, spin, inclination, distance,
         torch.float32 if dtype == np.float32 else torch.float64)
     on = torch.device(device if backend == 'device' else 'cpu')
-    state0 = integrator.RayState(*(x.to(on) for x in state0))
-    tau_final, samples = integrator.trace_rays(
-        state0, spin, lam.to(on), eta.to(on), r_o=distance, tau_max=tau_max,
+    trace = lambda rays: integrator.trace_rays(
+        integrator.RayState(*(x[rays].to(on) for x in state0)), spin,
+        lam[rays].to(on), eta[rays].to(on), r_o=distance, tau_max=tau_max,
         n_fine=n_fine, ngeo=ngeo, substeps=substeps)
-    samples = {k: v.cpu().numpy() for k, v in samples.items()}
-    tau_final, lam, eta = tau_final.cpu().numpy(), lam.numpy(), eta.numpy()
+    if mesh is None:
+        tau_final, samples = trace(slice(None))
+    else:
+        tau_final, samples = _trace_sharded(trace, lam.shape[0], ngeo, mesh,
+                                            on)
+    samples = {k: v[:, :npix].cpu().numpy() for k, v in samples.items()}
+    tau_final = tau_final[:npix].cpu().numpy()
+    lam, eta = lam[:npix].numpy(), eta[:npix].numpy()
+    alpha_flat, beta_flat = alpha_flat[:npix], beta_flat[:npix]
 
     def per_sample(arr):
         # (ngeo, npix) -> (*shape, ngeo)
@@ -282,3 +304,22 @@ def trace_geodesics(alpha, beta, spin, inclination, ngeo=100, distance=1000.0,
         tau_final=tau_final,
         spin=float(spin), inc=float(inclination), M=float(M), E=float(E),
         r_o=float(distance))
+
+
+def _trace_sharded(trace, n, ngeo, mesh, device):
+    """`trace` (rays -> (tau_final, samples)) over this rank's contiguous
+    block of the n rays, then the whole table on every rank: each rank
+    writes its block into a zeroed full-size buffer and one all-reduce
+    sums them (rule 1 of the mesh's collectives: all_reduce and
+    broadcast only, so gloo and NCCL alike)."""
+    per = n // mesh.size
+    lo = mesh.rank * per
+    tau_b, samples_b = trace(slice(lo, lo + per))
+    names = list(samples_b)
+    full = torch.zeros((len(names) * ngeo + 1, n), dtype=tau_b.dtype,
+                       device=device)
+    full[:-1, lo:lo + per] = torch.cat([samples_b[k] for k in names])
+    full[-1, lo:lo + per] = tau_b
+    mesh.all_reduce(full, mesh.axis_names, 'trace')
+    samples = dict(zip(names, full[:-1].reshape(len(names), ngeo, n)))
+    return full[-1], samples

@@ -7,6 +7,7 @@ PyTorch counterpart of `bhnerf_tpu/optimization.py` (the reference's
 import numpy as np
 import torch
 
+from bhnerf_tpu_torch.parallel.mesh import shard_frames
 from bhnerf_tpu_torch.train.logging import (SummaryWriter, StepTimer,
                                             profile_trace)
 from bhnerf_tpu_torch.train.optimizer import (LogFn, Optimizer,
@@ -26,11 +27,12 @@ def shard(xs, mesh=None):
     """Reference-signature shard (optimization.py:360-362): the leading
     axis of every array in `xs` (a tensor, an array or nested dicts,
     lists and tuples of them) reshaped to (device count, -1, ...), with
-    the count of CUDA devices (1 without one). Placing shards over a mesh
-    is not ported: mesh= raises NotImplementedError."""
+    the count of CUDA devices (1 without one). With a mesh
+    (parallel.mesh.Mesh): this rank's block of the leading axis by its
+    'data' coordinate (parallel.mesh.shard_frames; reference
+    optimization.py:13-18)."""
     if mesh is not None:
-        raise NotImplementedError(
-            'mesh placement is not ported; shard reshapes for one process')
+        return shard_frames(xs, mesh)
     n = max(torch.cuda.device_count(), 1)
 
     def split(x):

@@ -13,6 +13,14 @@ same order by both loops; the full frame tensors live on the training
 device and each step selects its batch there. The per-step loop uploads
 one step's indices at a time; the chunked loop uploads a chunk's indices
 once, from pinned memory, and reads one loss back per chunk.
+
+Under a mesh (parallel.mesh; frame data-parallelism through
+`TrainStep.image/eht(mesh=...)`, samples through ray constants in the
+sample-parallel layout) every rank runs this loop: the generators are
+seeded alike, so every rank draws the same batches and variants (`run`
+checks the seed across ranks once), rank 0's parameters are broadcast
+when a run starts, each step's gradients are summed over the ranks
+(train.step.make_step_fns), and rank 0 alone writes checkpoints.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ import numpy as np
 import torch
 
 from bhnerf_tpu_torch import units
+from bhnerf_tpu_torch.parallel import mesh as mesh_lib
 from bhnerf_tpu_torch.train import state as state_lib
 from bhnerf_tpu_torch.train import step as step_lib
 
@@ -63,7 +72,14 @@ class _GracefulShutdown:
     gets a SIGTERM and a grace period; the training loop polls
     `requested` at step boundaries and checkpoints and returns instead of
     dying mid-step. A no-op off the main thread, where a handler cannot
-    be installed."""
+    be installed.
+
+    Under a mesh the flag is each process's own, as in the reference
+    (which does not share it across processes either): a SIGTERM must
+    reach every rank, as torchrun sends it to all of them, and the ranks
+    stop together only if it lands on each before the same step
+    boundary. A rank that stops alone leaves the others waiting in the
+    next step's collectives."""
 
     def __init__(self):
         self.requested = False
@@ -126,7 +142,8 @@ class Optimizer:
         if checkpoint_dir:
             self.state = state_lib.restore_checkpoint(checkpoint_dir,
                                                       self.state)
-            predictor.save_params(checkpoint_dir)
+            if mesh_lib.process_rank() == 0:
+                predictor.save_params(checkpoint_dir)
 
     def log(self):
         for log_fn in self.log_fns:
@@ -172,7 +189,17 @@ class Optimizer:
         from a generator seeded by (seed, starting step), so that it does
         not replay the first run's batches (reference optimizer.py:
         212-215); a fresh run keeps drawing from the generator that drew
-        its initial weights."""
+        its initial weights.
+
+        Under a mesh (that of the train step's frames or of the ray
+        constants) the run first checks with one all-reduce that every
+        rank has the same seed, and raises RuntimeError if not, then
+        broadcasts rank 0's parameters; the loss it reports is the global
+        loss, the same on every rank."""
+        mesh = _mesh_of(train_step, raytracing_args)
+        if mesh is not None:
+            mesh_lib.check_same_seed(self.seed, mesh)
+            mesh_lib.broadcast_parameters(self.state.params, mesh)
         self.init_step = self.state.step + 1
         self.final_step = self.init_step + self.num_iters
         self.log_fns = list(log_fns)
@@ -329,6 +356,26 @@ class Optimizer:
                       flush=True)
 
 
+def _mesh_kw(mesh):
+    """The scan meta's `mesh` keyword: only for frames split over a mesh,
+    so that a meta without one is the reference's (make_scan_step's
+    keywords)."""
+    return {} if mesh is None else {'mesh': mesh}
+
+
+def _mesh_of(train_step, raytracing_args):
+    """The one mesh of a train step's frames and ray constants, or None;
+    different meshes raise ValueError."""
+    meshes = {id(m): m for m in
+              [a.mesh for a in train_step.args]
+              + [getattr(rt, 'mesh', None) for rt in _as_list(raytracing_args)]
+              if m is not None}
+    if len(meshes) > 1:
+        raise ValueError('the frames and ray constants of a run are on '
+                         'different meshes')
+    return next(iter(meshes.values()), None)
+
+
 class TrainStep:
     """Composable container of (dtype, args, grad/test fns, scale), one
     entry per loss (reference optimization.py:145-268). scan_meta: one
@@ -412,31 +459,34 @@ class TrainStep:
 
     @classmethod
     def image(cls, t_frames, target, predictor, sigma=1.0, offset=0.0,
-              scale=1.0, dtype='full', fused=False, tv_scale=0.0,
+              scale=1.0, dtype='full', mesh=None, fused=False, tv_scale=0.0,
               tv_fov=None, tv_resolution=32, device='cuda'):
         """Image-plane ('full') or lightcurve ('lc') training step
         (reference optimization.py:189-217). sigma and offset broadcast
         against the target, so a (3,) sigma serves an (nt, 3) polarized
-        lightcurve. fused=True routes the render through the fused CUDA
-        kernels; tv_scale > 0 adds a total-variation penalty on the
-        canonical-frame volume (step.tv_loss)."""
+        lightcurve. mesh: frame data-parallelism (each rank renders its
+        share of every gradient step's batch; step.make_step_fns).
+        fused=True routes the render through the fused CUDA kernels;
+        tv_scale > 0 adds a total-variation penalty on the canonical-frame
+        volume (step.tv_loss)."""
         target = np.asarray(target)
         sigma = sigma * np.ones_like(target)
         offset = offset * np.ones_like(target)
         args = TemporalBatchedArgs(t_frames, [target, sigma, offset],
-                                   device=device)
+                                   mesh=mesh, device=device)
         grad_fn, test_fn = step_lib.make_step_fns(
             predictor, kind='image', dtype=dtype, fused=fused,
-            tv_scale=tv_scale, tv_fov=tv_fov, tv_resolution=tv_resolution)
+            tv_scale=tv_scale, tv_fov=tv_fov, tv_resolution=tv_resolution,
+            mesh=mesh)
         meta = dict(predictor=predictor, kind='image', dtype=dtype,
                     fused=fused, tv_scale=tv_scale, tv_fov=tv_fov,
-                    tv_resolution=tv_resolution)
+                    tv_resolution=tv_resolution, **_mesh_kw(mesh))
         return cls(dtype, args, grad_fn, test_fn, scale, scan_meta=meta)
 
     @classmethod
     def eht(cls, t_frames, obs, image_fov, image_size, predictor,
-            chisqdata=None, dtype='vis', pol='I', scale=1.0, fused=False,
-            operator='dense', device='cuda'):
+            chisqdata=None, dtype='vis', pol='I', scale=1.0, mesh=None,
+            fused=False, operator='dense', device='cuda'):
         """EHT measurement training step (reference optimizer.py:444-476,
         optimization.py:219-268). obs: an observation.Observation, or
         anything with chisqdata(t_frames, dtype, image_fov, image_size,
@@ -446,7 +496,8 @@ class TrainStep:
         separable operator, npix-fold smaller than the dense DFT matrix
         and equal to it within float32 round-off. The targets, sigmas and
         operators live on `device` in float32 whatever the predictor's
-        compute dtype."""
+        compute dtype, whole on every rank of a `mesh` (frame
+        data-parallelism, as in TrainStep.image)."""
         if chisqdata is not None:
             dtype = getattr(chisqdata, 'dtype', dtype)
         # operator= only when it is not the default: a duck-typed
@@ -457,12 +508,13 @@ class TrainStep:
                                          image_size, pol=pol, **op_kw)
         target, sigma, A = step_lib.to_real_measurements(dtype, target,
                                                          sigma, A)
-        args = TemporalBatchedArgs(t_frames, [target, sigma, A],
+        args = TemporalBatchedArgs(t_frames, [target, sigma, A], mesh=mesh,
                                    device=device)
         grad_fn, test_fn = step_lib.make_step_fns(predictor, kind='eht',
-                                                  dtype=dtype, fused=fused)
+                                                  dtype=dtype, fused=fused,
+                                                  mesh=mesh)
         meta = dict(predictor=predictor, kind='eht', dtype=dtype,
-                    fused=fused)
+                    fused=fused, **_mesh_kw(mesh))
         return cls(dtype, args, grad_fn, test_fn, scale, scan_meta=meta)
 
     @property
@@ -472,9 +524,11 @@ class TrainStep:
 
 class TemporalBatchedArgs:
     """Frame-indexed args resident on one device
-    (reference optimization.py:274-302)."""
+    (reference optimization.py:274-302, :484-566). Under a mesh every rank
+    holds the whole frame tensors, and a gradient step renders the rank's
+    share of its batch (step.make_step_fns)."""
 
-    def __init__(self, t_frames, args=(), device='cuda'):
+    def __init__(self, t_frames, args=(), mesh=None, device='cuda'):
         self.t_frames = t_frames
         args = list(args) if isinstance(args, (list, tuple)) else [args]
         self.num_frames = len(t_frames)
@@ -483,8 +537,18 @@ class TemporalBatchedArgs:
         t_vals, self._t_unit = units.strip_time(t_frames, units.hr)
         args.append(np.asarray(t_vals, np.float32))
         self.args = args
+        self.mesh = mesh
         self.device = device
         self._device_args = None
+        ndata = 1 if mesh is None else mesh.shape.get('data', 1)
+        if self.num_frames % ndata:
+            # the reference then replicates its frame tensors
+            # (optimizer.py:516-531); the port keeps them whole on every
+            # rank in any case and splits each batch
+            warnings.warn(
+                f'num_frames={self.num_frames} does not divide the '
+                f"'data' mesh axis ({ndata}); frame tensors fall back to "
+                f'full replication (every rank holds all frames)')
 
     @property
     def device_args(self):

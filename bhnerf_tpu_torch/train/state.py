@@ -21,6 +21,9 @@ import shutil
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
+
+from bhnerf_tpu_torch.parallel import mesh as mesh_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,7 +118,20 @@ def save_checkpoint(checkpoint_dir, state: TrainState, step, keep=5):
     all but the newest `keep` checkpoints (keep <= 0 keeps all;
     reference state.py:119-151). The directory is written under a
     temporary name and renamed, so a run killed mid-save leaves no
-    partial checkpoint."""
+    partial checkpoint.
+
+    Under torch.distributed every rank calls it and rank 0 alone writes
+    and prunes (the parameters and Adam state are the same on every
+    rank); the others wait for it at a barrier, so that a restore that
+    follows sees the new checkpoint. checkpoint_dir must be on a
+    filesystem that every rank sees (restore_checkpoint checks)."""
+    if mesh_lib.process_rank() == 0:
+        _write_checkpoint(checkpoint_dir, state, step, keep)
+    if mesh_lib.world_size() > 1:
+        dist.barrier()
+
+
+def _write_checkpoint(checkpoint_dir, state, step, keep):
     checkpoint_dir = Path(checkpoint_dir).absolute()
     checkpoint_dir.mkdir(parents=True, exist_ok=True)
     path = checkpoint_dir / f'checkpoint_{int(step)}'
@@ -138,12 +154,32 @@ def _load(checkpoint_dir, step):
                       map_location='cpu', weights_only=True)
 
 
+def _assert_step_agreement(step):
+    """Every rank must see the same latest checkpoint step (reference
+    state.py:160-179): rank 0 alone writes, so checkpoint_dir must be
+    shared by every rank; a rank-local directory would resume the ranks
+    at different steps and their collectives would hang. One all-reduce
+    (MAX of the step and of its negation) tells; a difference raises
+    RuntimeError."""
+    local = -1 if step is None else int(step)
+    lo, hi = mesh_lib.agree(local, what='step')
+    if lo != hi:
+        raise RuntimeError(
+            f'checkpoint step disagrees across ranks: they see {lo}..{hi} '
+            f'(rank {mesh_lib.process_rank()} sees {local}; -1 is none). '
+            f'checkpoint_dir must live on a filesystem shared by every rank '
+            f'(rank 0 is the only writer); a rank-local path desyncs the '
+            f'resume and would hang the collectives.')
+
+
 def restore_checkpoint(checkpoint_dir, state: TrainState):
     """Load the latest checkpoint into `state` (params, Adam state and
     step, each on the device of the state's parameters) and return it;
     without a checkpoint, return `state` unchanged (reference
-    state.py:181-201)."""
+    state.py:181-201). Under torch.distributed every rank must see the
+    same latest step (_assert_step_agreement)."""
     step = latest_checkpoint_step(checkpoint_dir)
+    _assert_step_agreement(step)
     if step is None:
         return state
     payload = _load(checkpoint_dir, step)

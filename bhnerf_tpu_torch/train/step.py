@@ -1,7 +1,6 @@
 """Ray constants, domain compaction, image loss and the gradient step.
 
-PyTorch counterpart of `bhnerf_tpu/train/step.py` without its mesh
-sharding:
+PyTorch counterpart of `bhnerf_tpu/train/step.py`:
 
 * `RayTracingArgs` freezes the geodesic constants into float32 tensors on
   the training device; `t_geos - t_injection` is subtracted in float64 on
@@ -15,21 +14,31 @@ sharding:
   directly into the per-pixel padded group slots, with inert filler
   samples in the empty slots, so the reduction is a strided sum with no
   gather (`_NativeReduce`);
+* the sample-parallel layout (`compact_raytracing_args(mesh=...)`): the
+  pixel-sorted in-domain samples split into equal contiguous blocks, one
+  per rank of the mesh's 'ray' axis, each with its own block-local
+  reduction tables; a rank renders and reduces its block and one
+  all-reduce sums the partial images (`parallel.mesh.sum_partials`);
 * polarized ray constants carry per-sample Stokes factors `J`; they fold
   into one weight row per Stokes component, outside the fused kernels;
 * the 'lc' loss takes the lightcurve straight from the compact samples
-  as `em @ weights^T`, sharing one emission pass with the aux images;
+  as `em @ weights^T`, sharing one emission pass with the aux images
+  (a gradient step on samples split over a mesh sums only the
+  lightcurve);
 * the EHT losses (`loss_fn_eht`: 'vis', 'amp', 'cphase', 'bs', 'logcamp',
   'camp') map images to visibilities through a dense or factored DFT
   operator split into real and imaginary parts, whose products run in
   IEEE float32 whatever the caller's TF32 setting;
 * `make_step_fns` returns the grad/test steps over full device-resident
-  frame tensors plus explicit frame indices;
+  frame tensors plus explicit frame indices; under a mesh a gradient
+  step takes this rank's share of the frame batch and sums the
+  gradients over the ranks before Adam;
 * `make_scan_step` and `make_composed_scan_step` run a chunk of gradient
   steps on frame indices drawn on the host and uploaded once, without a
-  synchronisation inside the chunk; for an ensemble the host picks each
-  step's variant from the list. `stack_ensemble` stacks an ensemble as
-  the reference does, and raises as it does when the variants differ.
+  synchronisation inside the chunk beyond the collectives of a mesh; for
+  an ensemble the host picks each step's variant from the list.
+  `stack_ensemble` stacks an ensemble as the reference does, and raises
+  as it does when the variants differ.
 """
 from __future__ import annotations
 
@@ -46,6 +55,7 @@ from bhnerf_tpu_torch import units, utils
 from bhnerf_tpu_torch.models.fields import learned_t_injection
 from bhnerf_tpu_torch.ops import fused as fused_lib
 from bhnerf_tpu_torch.ops import gr
+from bhnerf_tpu_torch.parallel import mesh as mesh_lib
 
 # group size of the two-level compact reduction
 _REDUCE_G = 8
@@ -142,6 +152,13 @@ class CompactRayArgs:
     t_start_obs: float = 0.0
     t_to_M: float = 1.0
     t_units: Any = None
+    # sample-parallel layout (compact_raytracing_args(mesh=...)): the
+    # samples split into `num_shards` equal contiguous blocks over mesh
+    # axis `shard_axis`; the tensors above hold this rank's block, with
+    # block-local red_gather and global pixel ids
+    num_shards: int = 1
+    mesh: Any = None
+    shard_axis: str = 'ray'
 
     @property
     def num_stokes(self):
@@ -200,6 +217,7 @@ def _pad_grouped(red_gather, red_weights, red_group_ids, valid_slot,
 
 
 def compact_raytracing_args(rt: RayTracingArgs, predictor, tile=None,
+                            mesh=None, shards=None, shard_axis='ray',
                             pad_local_n=None, pad_groups=None,
                             layout='auto') -> CompactRayArgs:
     """Gather the in-domain subset of a RayTracingArgs (host-side, once).
@@ -209,9 +227,19 @@ def compact_raytracing_args(rt: RayTracingArgs, predictor, tile=None,
     `tile` (the fused kernels' TILE_N by default); padding samples never
     become valid.
 
-    pad_local_n / pad_groups force minimum sample / group counts, so that
-    several sub-pixel-ray variants come out identically shaped
-    (compact_ensemble_args).
+    mesh + shard_axis (or an explicit shard count equal to that axis's
+    size) give the sample-parallel layout (reference step.py:222-406):
+    the pixel-sorted in-domain samples split into `shards` equal
+    contiguous blocks (np.array_split), each with its own block-local
+    grouped-reduction tables; all blocks share one sample count and one
+    group count. Every rank builds every block's layout on the host, so
+    that the padding is common, and keeps only the block of its
+    coordinate along `shard_axis` on its device. shards > 1 without a
+    mesh raises ValueError.
+
+    pad_local_n / pad_groups force minimum per-block sample / group
+    counts, so that several sub-pixel-ray variants come out identically
+    shaped (compact_ensemble_args).
 
     layout selects the reduction strategy (reference step.py:249-258):
     * 'gather': samples packed tight; the reduce re-gathers them into
@@ -225,6 +253,15 @@ def compact_raytracing_args(rt: RayTracingArgs, predictor, tile=None,
     """
     if tile is None:
         tile = fused_lib.TILE_N
+    if shards is None:
+        shards = mesh.shape.get(shard_axis, 1) if mesh is not None else 1
+    if shards > 1 and mesh is None:
+        raise ValueError('sample-parallel layout (shards > 1) needs the '
+                         'mesh whose ranks hold the blocks')
+    if mesh is not None and shards != mesh.shape.get(shard_axis, 1):
+        raise ValueError(f'{shards} sample blocks over the {shard_axis!r} '
+                         f'axis of a mesh of shape {mesh.shape}')
+    block_index = 0 if mesh is None else int(mesh.coords[shard_axis])
     device = rt.coords.device
     host = lambda x: x.cpu().numpy()
     coords = host(rt.coords)                  # (3, na, nb, ngeo)
@@ -233,14 +270,15 @@ def compact_raytracing_args(rt: RayTracingArgs, predictor, tile=None,
         torch.as_tensor(coords), predictor.rmin, predictor.rmax,
         predictor.z_width).numpy()
 
-    idx = np.flatnonzero(domain.reshape(-1))
+    flat_idx_all = np.flatnonzero(domain.reshape(-1))
     G = _REDUCE_G
     npix = na * nb
     w_all = (host(rt.g) ** 2 * host(rt.dtau)
-             * host(rt.Sigma)).reshape(-1)[idx]
+             * host(rt.Sigma)).reshape(-1)[flat_idx_all]
     polarized = _ndim(rt.J) > 0
     if polarized:
-        W_all = host(rt.J).reshape(rt.J.shape[0], -1)[:, idx] * w_all
+        W_all = host(rt.J).reshape(rt.J.shape[0], -1)[:, flat_idx_all] \
+            * w_all
     else:
         W_all = (w_all * float(rt.J))[None]
 
@@ -253,17 +291,23 @@ def compact_raytracing_args(rt: RayTracingArgs, predictor, tile=None,
     if layout not in ('native', 'gather'):
         raise ValueError(f'unknown layout {layout!r}')
 
-    pix = idx // ngeo
-    lay = _grouped_layout(pix, W_all, npix, G)
-    # group count: a multiple of 8; in the 'native' layout groups * G is
-    # the sample count and must also be a multiple of the tile
-    n_groups = lay[2].size
+    # contiguous equal blocks of the pixel-sorted sample list, so pixel
+    # segments stay (mostly) block-local; the group count is common to
+    # the blocks: a multiple of 8, and in the 'native' layout groups * G
+    # is the sample count and must also be a multiple of the tile
+    blocks = np.array_split(np.arange(flat_idx_all.size), shards)
+    layouts = [_grouped_layout(flat_idx_all[b] // ngeo, W_all[:, b], npix, G)
+               for b in blocks]
+    n_groups = max(lay[2].size for lay in layouts)
     gmult = max(8, tile // G) if layout == 'native' else 8
     if pad_groups is not None:
         n_groups = max(n_groups, int(pad_groups))
     n_groups = (n_groups + gmult - 1) // gmult * gmult
-    rg, rw, rgid, valid = _pad_grouped(*lay, n_groups, npix, G)
 
+    b = blocks[block_index]
+    idx = flat_idx_all[b]
+    rg, rw, rgid, valid = _pad_grouped(*layouts[block_index], n_groups,
+                                       npix, G)
     Omega = rt.Omega
     omega_flat = None if Omega.ndim == 0 else host(Omega).reshape(-1)
     tg_flat = host(rt.t_geos_rel).reshape(-1)
@@ -289,7 +333,7 @@ def compact_raytracing_args(rt: RayTracingArgs, predictor, tile=None,
             pix=np.tile(rgid, G))
         rg = rw = None
     else:
-        local_n = (idx.size + tile - 1) // tile * tile
+        local_n = max((len(blk) + tile - 1) // tile * tile for blk in blocks)
         if pad_local_n is not None:
             local_n = max(local_n, int(pad_local_n))
         pad = local_n - idx.size
@@ -301,10 +345,10 @@ def compact_raytracing_args(rt: RayTracingArgs, predictor, tile=None,
         cols = dict(
             coords=padded(coords_flat[:, idx]),
             Omega=None if omega_flat is None else padded(omega_flat[idx]),
-            weights=padded(W_all),
+            weights=padded(W_all[:, b]),
             # padding gets a never-valid time so it never activates
             tg=padded(tg_flat[idx], fill=-1e30),
-            pix=padded(pix.astype(np.int64), fill=npix))
+            pix=padded((idx // ngeo).astype(np.int64), fill=npix))
 
     f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32)).to(device)
     i64 = lambda x: torch.as_tensor(np.asarray(x, np.int64)).to(device)
@@ -323,6 +367,9 @@ def compact_raytracing_args(rt: RayTracingArgs, predictor, tile=None,
         t_start_obs=rt.t_start_obs,
         t_to_M=rt.t_to_M,
         t_units=rt.t_units,
+        num_shards=int(shards),
+        mesh=mesh,
+        shard_axis=shard_axis,
     )
 
 
@@ -548,11 +595,23 @@ def _frame_times(t_frames_M, rt):
                            device=rt.coords.device)
 
 
+def _sum_over_blocks(crt: CompactRayArgs, *parts, kind='image'):
+    """The partial results of this rank's sample block summed over the
+    blocks of a sample-parallel layout: one all-reduce over the mesh's
+    `shard_axis` (reference step.py:623-677, the psum at the end of the
+    shard_map), counted as `kind`; the parts themselves for one block."""
+    if crt.mesh is None:
+        return parts
+    return mesh_lib.sum_partials(crt.mesh, crt.shard_axis, *parts,
+                                 kind=kind)
+
+
 def _compact_prediction(params, predictor, t_frames_M, crt: CompactRayArgs,
                         fused=False):
-    """Image frames from domain-compacted samples."""
+    """Image frames from domain-compacted samples: the rank's block
+    rendered and reduced, then summed over the blocks."""
     emission = _compact_emission(params, predictor, t_frames_M, crt, fused)
-    images = _reduce_to_images(emission, crt)
+    (images,) = _sum_over_blocks(crt, _reduce_to_images(emission, crt))
     return _shape_images(images, tuple(t_frames_M.shape), crt)
 
 
@@ -562,24 +621,38 @@ def compact_lightcurve(params, predictor, t_frames_M, crt: CompactRayArgs,
     (reference step.py:703-730). The 'lc' loss sums the image over
     pixels, so the per-Stokes totals are one (F, N) @ (N, ns) product
     and the per-pixel reduction is not needed. For callers that never
-    need images; loss_fn_image uses compact_image_and_lightcurve."""
+    need images; loss_fn_image shares the pass with its aux images."""
     t_frames_M = _frame_times(t_frames_M, crt)
     em = _compact_emission(params, predictor, t_frames_M, crt, fused)
-    return _shape_lightcurve(em @ crt.weights.T, tuple(t_frames_M.shape),
-                             crt)
+    (lc,) = _sum_over_blocks(crt, em @ crt.weights.T, kind='lightcurve')
+    return _shape_lightcurve(lc, tuple(t_frames_M.shape), crt)
+
+
+def _image_and_lightcurve(params, predictor, t_frames_M, crt, fused,
+                          sum_images):
+    t_frames_M = _frame_times(t_frames_M, crt)
+    t_shape = tuple(t_frames_M.shape)
+    em = _compact_emission(params, predictor, t_frames_M, crt, fused)
+    if sum_images:
+        images, lc = _sum_over_blocks(crt, _reduce_to_images(em, crt),
+                                      em @ crt.weights.T)
+    else:
+        with torch.no_grad():
+            images = _reduce_to_images(em, crt)
+        (lc,) = _sum_over_blocks(crt, em @ crt.weights.T, kind='lightcurve')
+    return (_shape_images(images, t_shape, crt),
+            _shape_lightcurve(lc, t_shape, crt))
 
 
 def compact_image_and_lightcurve(params, predictor, t_frames_M,
                                  crt: CompactRayArgs, fused=False):
     """(images, lightcurve) from one emission pass over compact samples
     (reference step.py:733-759): the lightcurve is em @ weights^T and the
-    image reduce rides the same pass, so the fused forward runs once."""
-    t_frames_M = _frame_times(t_frames_M, crt)
-    t_shape = tuple(t_frames_M.shape)
-    em = _compact_emission(params, predictor, t_frames_M, crt, fused)
-    images = _reduce_to_images(em, crt)
-    return (_shape_images(images, t_shape, crt),
-            _shape_lightcurve(em @ crt.weights.T, t_shape, crt))
+    image reduce rides the same pass, so the fused forward runs once; in
+    the sample-parallel layout both partials are summed in one
+    all-reduce."""
+    return _image_and_lightcurve(params, predictor, t_frames_M, crt, fused,
+                                 sum_images=True)
 
 
 def image_plane_prediction(params, predictor, t_frames_M, rt, fused=False):
@@ -603,7 +676,15 @@ def image_plane_prediction(params, predictor, t_frames_M, rt, fused=False):
 def loss_fn_image(params, predictor, target, sigma, offset, t_frames_M,
                   rt, scale, dtype, fused=False):
     """Chi-square image ('full') or lightcurve ('lc') loss (reference
-    network.py:422-484). Returns (scale * loss, [images])."""
+    network.py:422-484). Returns (scale * loss, [images]).
+
+    The 'lc' loss reads the lightcurve alone. So where autograd records
+    (a gradient step) on samples split over a mesh, only the lightcurve
+    is summed over the blocks (frames x Stokes floats, not the images'
+    frames x Stokes x pixels) and the images returned are this rank's
+    partials, detached; the reference's image psum has no reader there
+    either, and XLA drops it inside its scan. Without autograd (a test
+    step) the images and the lightcurve are summed in one all-reduce."""
     if dtype == 'full':
         images = image_plane_prediction(params, predictor, t_frames_M, rt,
                                         fused=fused)
@@ -613,8 +694,9 @@ def loss_fn_image(params, predictor, target, sigma, offset, t_frames_M,
             # one product instead of the per-pixel reduce + pixel sum
             # (different only by float reassociation); the aux images
             # share the emission pass
-            images, lightcurve = compact_image_and_lightcurve(
-                params, predictor, t_frames_M, rt, fused=fused)
+            images, lightcurve = _image_and_lightcurve(
+                params, predictor, t_frames_M, rt, fused,
+                sum_images=rt.mesh is None or not torch.is_grad_enabled())
         else:
             images = image_plane_prediction(params, predictor, t_frames_M,
                                             rt, fused=fused)
@@ -838,8 +920,30 @@ def tv_loss(params, predictor, fov, resolution=32):
 # ---------------------------------------------------------------------------
 # steps
 # ---------------------------------------------------------------------------
+def _partial_axes(rt, mesh):
+    """(mesh, axes) of a gradient step: the mesh the step runs on and the
+    axes along which its ranks hold different partials of the loss. The
+    frames are split over 'data' when the step was built with a mesh
+    whose 'data' size is > 1; the samples over the ray constants'
+    `shard_axis` when they are in the sample-parallel layout. Ranks that
+    differ along no such axis compute the same thing."""
+    rt_mesh = getattr(rt, 'mesh', None)
+    if rt_mesh is not None and mesh is not None and rt_mesh is not mesh:
+        raise ValueError('the ray constants and the frame batches are on '
+                         'different meshes')
+    axes = []
+    if mesh is not None and mesh.shape.get('data', 1) > 1:
+        axes.append('data')
+    if rt_mesh is not None and rt.num_shards > 1:
+        if rt.shard_axis in axes:
+            raise ValueError(f'frames and samples both split over '
+                             f'{rt.shard_axis!r}')
+        axes.append(rt.shard_axis)
+    return (rt_mesh if rt_mesh is not None else mesh), tuple(axes)
+
+
 def make_step_fns(predictor, kind='image', dtype='full', fused=False,
-                  tv_scale=0.0, tv_fov=None, tv_resolution=32):
+                  tv_scale=0.0, tv_fov=None, tv_resolution=32, mesh=None):
     """(grad_step, test_step), equivalent to the reference's
     make_step_fns(gather=True): batch args are the FULL frame tensors
     (target, sigma, third, t_frames) on the device plus an `indices`
@@ -847,41 +951,67 @@ def make_step_fns(predictor, kind='image', dtype='full', fused=False,
     `offset` for kind='image' and the measurement operator `A` for
     kind='eht'. Both return (loss, state, images); grad_step updates
     `state` in place. tv_scale > 0 adds tv_scale * tv_loss over a cube of
-    side tv_fov (2 * predictor.scale by default)."""
+    side tv_fov (2 * predictor.scale by default).
+
+    mesh: frame data-parallelism. Every rank passes the same indices and
+    a gradient step renders this rank's contiguous share of them by its
+    'data' coordinate (mesh_lib.batch_share: the 'data' size must divide
+    the batch), then sums the gradients over the ranks that hold
+    different partials (mesh_lib.all_reduce_gradients: frames over
+    'data', and samples over 'ray' when the ray constants are in the
+    sample-parallel layout) and the loss over 'data', so that every rank
+    takes the same Adam step and returns the global loss; its images are
+    those of this rank's frames (for the 'lc' loss on samples split over
+    'ray', this rank's partial images: see loss_fn_image). The total
+    variation depends only on the
+    parameters and every rank computes it whole: its gradient is added
+    on the first rank of those groups alone, and its value to the global
+    loss once. A test step renders the whole batch on every rank."""
     if kind not in ('image', 'eht'):
         raise ValueError(f'unknown loss kind {kind!r}')
     loss_fn = loss_fn_image if kind == 'image' else loss_fn_eht
 
     def compute_batch_loss(params, target, sigma, third, t_frames, indices,
                            rt, scale):
+        """(data loss, tv term or None, [images])."""
         take = lambda x: x.index_select(0, indices)
         t_frames_M = rt.frame_times_M(take(t_frames))
         loss, aux = loss_fn(params, predictor, take(target), take(sigma),
                             take(third), t_frames_M, rt, scale, dtype,
                             fused=fused)
+        tv = None
         if tv_scale:
             fov = 2.0 * predictor.scale if tv_fov is None else tv_fov
-            loss = loss + tv_scale * tv_loss(params, predictor, fov,
-                                             tv_resolution)
-        return loss, aux
+            tv = tv_scale * tv_loss(params, predictor, fov, tv_resolution)
+        return loss, tv, aux
 
     def grad_step(state, target, sigma, third, t_frames, indices, rt,
                   scale):
+        on, axes = _partial_axes(rt, mesh)
+        if 'data' in axes:
+            indices = mesh_lib.batch_share(indices, on)
         state.zero_grad()
-        loss, [images] = compute_batch_loss(state.params, target, sigma,
-                                            third, t_frames, indices, rt,
-                                            scale)
-        loss.backward()
+        loss, tv, [images] = compute_batch_loss(
+            state.params, target, sigma, third, t_frames, indices, rt, scale)
+        # the tv gradient counts once across the ranks summed below
+        first = on is None or all(on.coords[a] == 0 for a in axes)
+        (loss if tv is None or not first else loss + tv).backward()
+        loss = loss.detach()
+        if axes:
+            mesh_lib.all_reduce_gradients(state.params, on, axes)
+            if 'data' in axes:
+                on.all_reduce(loss, ('data',), 'loss')
         state.apply_gradients()
-        return loss.detach(), state, images.detach()
+        if tv is not None:
+            loss = loss + tv.detach()
+        return loss, state, images.detach()
 
     @torch.no_grad()
     def test_step(state, target, sigma, third, t_frames, indices, rt,
                   scale):
-        loss, [images] = compute_batch_loss(state.params, target, sigma,
-                                            third, t_frames, indices, rt,
-                                            scale)
-        return loss, state, images
+        loss, tv, [images] = compute_batch_loss(
+            state.params, target, sigma, third, t_frames, indices, rt, scale)
+        return (loss if tv is None else loss + tv), state, images
 
     return grad_step, test_step
 
@@ -919,7 +1049,7 @@ def _chunk(state, grad_steps, scales, loss_args, indices, variants, rt,
 
 def make_scan_step(predictor, kind='image', dtype='full', fused=False,
                    tv_scale=0.0, tv_fov=None, tv_resolution=32, batchsize=6,
-                   chunk=100):
+                   chunk=100, mesh=None):
     """`chunk` gradient steps of one loss in one call (reference
     step.py:1064-1126, a lax.scan there). Returns
     scan_steps(state, target, sigma, third, t_frames, indices, variants,
@@ -929,12 +1059,14 @@ def make_scan_step(predictor, kind='image', dtype='full', fused=False,
     batchsize) int64 tensor already on the device, `variants` the chunk's
     variant numbers as host ints, and `rt` one set of ray constants (all
     variants 0) or an ensemble's list of them, of which step i trains on
-    rt[variants[i]]. Each step is make_step_fns' grad_step, so a chunk
-    gives the per-step loop's losses for the same draws. Inside the chunk
-    nothing is read back, copied from the host or synchronised."""
+    rt[variants[i]]. Each step is make_step_fns' grad_step (with its
+    `mesh`), so a chunk gives the per-step loop's losses for the same
+    draws. Inside the chunk nothing is read back, copied from the host or
+    synchronised, beyond a mesh's collectives."""
     grad_step, _ = make_step_fns(predictor, kind=kind, dtype=dtype,
                                  fused=fused, tv_scale=tv_scale,
-                                 tv_fov=tv_fov, tv_resolution=tv_resolution)
+                                 tv_fov=tv_fov, tv_resolution=tv_resolution,
+                                 mesh=mesh)
 
     def scan_steps(state, target, sigma, third, t_frames, indices, variants,
                    rt, scale):
@@ -961,8 +1093,8 @@ def make_composed_scan_step(batchsize=6, chunk=100, metas=(), scales=()):
     grad_steps = [make_step_fns(
         m['predictor'], kind=m.get('kind', 'image'), dtype=m['dtype'],
         fused=m.get('fused', False), tv_scale=m.get('tv_scale', 0.0),
-        tv_fov=m.get('tv_fov'), tv_resolution=m.get('tv_resolution', 32))[0]
-        for m in metas]
+        tv_fov=m.get('tv_fov'), tv_resolution=m.get('tv_resolution', 32),
+        mesh=m.get('mesh'))[0] for m in metas]
 
     def scan_steps(state, *args):
         *loss_args, indices, variants, rt = args

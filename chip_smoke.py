@@ -4,8 +4,9 @@ steps of the Tutorial-3 image fit and of the ALMA polarized-lightcurve fit
 at full width, recover a synthetic hotspot from its movie in 1000 steps
 (per step and in chunks) and from an ngEHT observation in 5000, run
 the ALMA fit script's sweep, trace geodesic tables on the card with
-the float32 tracer kernel, and run equatorial lensing and the
-synthetic-flare workflow on it, on one CUDA device.
+the float32 tracer kernel, run equatorial lensing and the
+synthetic-flare workflow on it, and run the multi-GPU support as two
+ranks sharing the one CUDA device.
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 nvcc:
@@ -128,9 +129,17 @@ Phases (any failure raises and exits non-zero):
      10-variant ensemble, one forward and one backward launch a training
      step (the children print their counts); both kernels against their
      plain versions in float32 at the fit's N.
-The seven lines before the last are the JSON recovery, chunked-loop, EHT,
-device-trace, synthetic and production summaries and the JSON kernel
-summary; the last line is {"ok": true, "device": {...}}.
+  14. multi-GPU (lines starting `multigpu`; multigpu_phase): two ranks
+     of bhnerf_tpu_torch.scripts.drive_multigpu on this card over gloo
+     against this process on the same inputs: the sharded device traces
+     of the Tutorial-3 screen and the ALMA ensemble (bitwise), one
+     Tutorial-3 step under meshes (1, 2) and (2, 1) and 200 chunked
+     steps under each, an ALMA 'lc' step under (1, 2), rank-0
+     checkpoints, each rank's kernel launches and collectives; then one
+     rank over NCCL.
+The eight lines before the last are the JSON recovery, chunked-loop, EHT,
+device-trace, synthetic, production and multi-GPU summaries and the JSON
+kernel summary; the last line is {"ok": true, "device": {...}}.
 """
 import concurrent.futures
 import contextlib
@@ -1140,11 +1149,13 @@ def recovery_target(geos, device):
 
 def recovery_kernel_checks(predictor, crt, t_frames, device,
                            label='recovery', dtypes=('float32', 'bfloat16'),
-                           batch=BATCH):
+                           batch=BATCH, want_dt=False):
     """Both kernels against their plain versions at the sample count of
     `crt` and a batch of `batch` frames drawn from `t_frames`, in each
     compute dtype of `dtypes` (those the fits run), with their times and
-    bounds. float32: emission atol 2e-6 / rtol 1e-4,
+    bounds; with `want_dt` the backward also gives the frame-time
+    cotangent (a learned injection time), held to rtol 2e-3. float32:
+    emission atol 2e-6 / rtol 1e-4,
     F 1e-5, gradients 5e-5 normalised. bfloat16, against the plain
     version in bfloat16: emission atol 2e-3 / rtol 2e-2, F one bf16 step
     (2^-7), gradients 1e-2 normalised (the card tests' tolerances); and
@@ -1163,7 +1174,7 @@ def recovery_kernel_checks(predictor, crt, t_frames, device,
     em32, f32 = fused.render_fwd_plain(*common, 'float32', stash=True)
     g32 = (2.0 * (em32 - target)).contiguous()
     gp32 = fused.render_bwd_plain(g32, em32, f32, omega, weights, biases,
-                                  cfg, deg, 'float32')
+                                  cfg, deg, 'float32', want_dt)
     tols = {'float32': (dict(atol=2e-6, rtol=1e-4), 1e-5, 5e-5),
             'bfloat16': (dict(atol=2e-3, rtol=2e-2), 2.0 ** -7, 1e-2)}
     out = {}
@@ -1172,20 +1183,25 @@ def recovery_kernel_checks(predictor, crt, t_frames, device,
         em_k, f_k = fused.render_fwd(*common, dtype, stash=True)
         em_p, f_p = fused.render_fwd_plain(*common, dtype, stash=True)
         g_em = (2.0 * (em_p - target)).contiguous()
-        bwd_args = (em_p, f_p, omega, weights, biases, cfg, deg, dtype)
+        bwd_args = (em_p, f_p, omega, weights, biases, cfg, deg, dtype,
+                    want_dt)
         gk = fused.render_bwd(g_em, *bwd_args)
         gp = fused.render_bwd_plain(g_em, *bwd_args)
         torch.cuda.synchronize()
         fwd_err = float((em_k - em_p).abs().max())
         f_err = float((f_k - f_p).abs().max())
         bwd_err, norm_err = grad_errors(gp, gk)
+        dt_rel = float(((gk[2] - gp[2]).abs() / (gp[2].abs() + 1e-12))
+                       .max()) if want_dt else 0.0
         line = (f'{label} N = {n}, {batch} frames, {dtype}: emission '
                 f'{fwd_err:.3e} (atol '
                 f'{em_tol["atol"]:g}, rtol {em_tol["rtol"]:g}), F '
                 f'{f_err:.3e} (atol {f_tol:.3g}), gradients '
-                f'{norm_err:.3e} normalised (atol {g_tol:.0e})')
+                f'{norm_err:.3e} normalised (atol {g_tol:.0e})'
+                + (f', d_t rel err {dt_rel:.3e} (rtol 2e-3)' if want_dt
+                   else ''))
         if not torch.allclose(em_k, em_p, **em_tol) or f_err > f_tol \
-                or norm_err > g_tol:
+                or norm_err > g_tol or dt_rel > 2e-3:
             raise RuntimeError(f'kernels disagree with their plain versions: '
                                f'{line}')
         if dtype == 'bfloat16':
@@ -1209,7 +1225,7 @@ def recovery_kernel_checks(predictor, crt, t_frames, device,
                  lambda: fused.render_bwd_plain(g_em, *bwd_args))):
             ms, plain_ms = cuda_ms(run), cuda_ms(plain)
             b_ms, b_by, _ = bound(kind, cfg, f_p.shape[0], batch, n,
-                                  n_params, dtype)
+                                  n_params, dtype, want_dt)
             out[dtype][kind] = {'max_abs_err': err, 'ms': ms,
                                 'plain_ms': plain_ms, 'bound_ms': b_ms,
                                 'bound_by': b_by}
@@ -1663,7 +1679,9 @@ def eht_fit(geos, hotspot, device):
     points: the recovery predictor (rmin 0) in bfloat16, compacted in the
     'gather' layout, TrainStep.eht('vis', fused=True, operator='dense'),
     Adam at lr 1e-3 -> 1e-5 for EHT_STEPS steps of batch BATCH; psnr_3d
-    and lc_err_pct against the bar. Returns (result, launches)."""
+    and lc_err_pct against the bar; then both kernels against their plain
+    versions in bfloat16 at the fit's N over the EHT window. Returns
+    (result, launches)."""
     import torch
     from bhnerf_tpu_torch import utils
     from bhnerf_tpu_torch.models.fields import NeRFPredictor, sample_3d_grid
@@ -1723,6 +1741,9 @@ def eht_fit(geos, hotspot, device):
     result['device_ms_per_step'] = profile_path(
         'EHT npix 64 dense bf16', opt, train_step, crt, 1e3 / result[
             'steps_per_s'])
+    result['bfloat16'] = recovery_kernel_checks(
+        predictor, crt, np.asarray(t_frames.value, np.float32), device,
+        label=f'EHT npix {NUM_RAYS}', dtypes=('bfloat16',))['bfloat16']
     return result, launches
 
 
@@ -1869,6 +1890,7 @@ def eht_phase(kernels, geos, device):
     for i, (entry, kind) in enumerate(zip(kernels, ('fwd', 'bwd'))):
         entry['eht'] = {
             'launches': fit_launches[i], 'n': fit['n'],
+            'bfloat16': fit['bfloat16'][kind],
             'npix128': {'n': production['n'],
                         'launches': {op: l[i] for op, l in launches.items()},
                         **{dtype: c[kind] for dtype, c in checks.items()}}}
@@ -2725,6 +2747,314 @@ def production_phase(kernels, device):
                 launches_total=launches)
 
 
+def multigpu_phase(kernels, geos, device):
+    """The port's multi-GPU support (bhnerf_tpu_torch.parallel) at full
+    width (lines starting `multigpu`): two ranks on this one card over
+    gloo (NCCL refuses two ranks on one device), each a process of
+    bhnerf_tpu_torch.scripts.drive_multigpu on a free localhost port, from
+    the Tutorial-3 host table (Geodesics.save; no rank traces on the
+    host) and one table of the ALMA ensemble traced here on the card, held
+    against this process's one-process results on the same card: (a) the
+    sharded device traces of the Tutorial-3 screen and of the 4-table ALMA
+    ensemble equal the one-process traces bitwise; (b) the sample-parallel
+    Tutorial-3 'full' step under mesh (1, 2) and (c) the frame
+    data-parallel step under (2, 1), batch 6 as 3 + 3: images to rtol
+    2e-5, loss to 2e-5 and gradients to 2e-4 (each with a floor of 1e-6 of
+    the largest magnitude); (d) 200 chunked steps (chunks of 100) under
+    each mesh track the one-process losses to rtol 2e-3; (e) the ALMA
+    'lc' step with 3-Stokes weights under (1, 2) to the tolerances of (b);
+    (f) rank 0 alone writes checkpoints, both ranks restore the same step
+    and rank-local directories that disagree raise; (g) every rank
+    launches the forward, backward and trace kernels, and the collectives
+    of a step are one image all-reduce over 'ray' per forward and one
+    all-reduce of the 55,169 gradients per step (with frames split, the
+    loss over 'data'; the ALMA 'lc' gradient step sums its lightcurve
+    alone over 'ray'), none sample-sized. Then one rank over NCCL: a
+    Tutorial-3 step, an all-reduce and a broadcast of its gradients on the
+    card. Two ranks share the card, so their step times are no scaling
+    figure. Returns the phase's summary; adds each kernel's launches over
+    the ranks to its JSON entry, and the kernels' checks against their
+    plain versions at the ranks' shapes (multigpu_kernel_checks)."""
+    import dataclasses as dc
+    import tempfile
+    from bhnerf_tpu_torch.geodesics import Geodesics, trace_geodesics
+    from bhnerf_tpu_torch.scripts import drive_multigpu as drive
+
+    t_phase = time.perf_counter()
+    inc = np.deg2rad(60.0)
+    a_alpha, a_beta = drive.alma_screens(ALMA_MODEL, ALMA_RAYS, 0)
+    t_alpha, t_beta = screen(NUM_RAYS)
+    trace = {
+        't3': dict(spin=SPIN, inclination=inc, ngeo=NGEO, n_fine=N_FINE,
+                   alpha=t_alpha, beta=t_beta),
+        'alma': dict(spin=ALMA_MODEL['spin'], inclination=inc, ngeo=NGEO,
+                     n_fine=N_FINE, alpha=a_alpha, beta=a_beta)}
+    ensemble = trace_geodesics(a_alpha, a_beta, backend='device',
+                               device=device, **{
+                                   k: v for k, v in trace['alma'].items()
+                                   if k not in ('alpha', 'beta')})
+    variant0 = dc.replace(ensemble, **{f: getattr(ensemble, f)[0]
+                                       for f in Geodesics._FIELDS})
+    t3 = dict(predictor=dict(scale=FOV / 2, rmin=3.0, rmax=FOV / 2,
+                             z_width=2.0, net_depth=4, net_width=128,
+                             posenc_deg=3),
+              fov=FOV, nt=NT, span_M=200.0, batch=BATCH, seed=0, lr=1e-3)
+    alma_cfg = dict(model=ALMA_MODEL, predictor=dict(
+        net_depth=4, net_width=128, posenc_deg=3, learn_injection=True),
+        rot_angle=float(np.deg2rad(32.2 + 20.0)), sigma=list(ALMA_SIGMA),
+        nt=NT, seed=0)
+    card = card_info()
+    with tempfile.TemporaryDirectory() as work:
+        config = drive.write_config(work, geos, variant0, t3, alma_cfg,
+                                    trace, ('1x2', '2x1'), 200, 100)
+        cfg = json.load(open(config))
+        ref = drive.one_process(cfg, device)
+        two = multigpu_ranks(config, 2, 'gloo')
+        nccl = multigpu_ranks(config, 1, 'nccl', '--nccl-probe')
+        records = [r for r, _ in two]
+        arrays = [a for _, a in two]
+    summary = multigpu_checks(ref, records, arrays, nccl, card)
+    checks = multigpu_kernel_checks(cfg, geos, variant0, device)
+    summary['kernel_checks'] = checks
+    summary['phase_s'] = time.perf_counter() - t_phase
+    log(f'multigpu phase: {summary["phase_s"]:.1f} s ({card})')
+    for entry, kind, key in zip(kernels, ('fwd', 'bwd'),
+                                ('render_fwd', 'render_bwd')):
+        entry['multigpu_launches'] = [r['launches'][key] for r in records]
+        entry['multigpu'] = {k: dict(c['float32'][kind], n=c['n'],
+                                     frames=c['frames'])
+                             for k, c in checks.items()}
+    summary['trace_launches'] = [r['launches']['trace_rays']
+                                 for r in records]
+    return summary
+
+
+def multigpu_kernel_checks(cfg, geos, alma_geos, device):
+    """Both kernels against their plain versions in float32 at the shapes
+    the ranks of multigpu_phase give them, built here in each rank's
+    place (compact_raytracing_args with a Mesh of that rank's
+    coordinates, no process group): each rank's Tutorial-3 block under
+    mesh (1, 2) with 6 frames, the whole Tutorial-3 table with a rank's 3
+    frames under (2, 1), and each rank's block of the ALMA table under
+    (1, 2) with 6 frames and the frame-time cotangent of the learned
+    injection time (its 3-Stokes weights enter after the kernels, in
+    em @ W^T). Tolerances of recovery_kernel_checks. Returns {shape:
+    {'n', 'frames', 'float32': {'fwd': ..., 'bwd': ...}}}."""
+    from bhnerf_tpu_torch.parallel.mesh import Mesh
+    from bhnerf_tpu_torch.scripts import drive_multigpu as drive
+    from bhnerf_tpu_torch.train.step import compact_raytracing_args
+
+    out = {}
+    rt, predictor, t_frames = drive.t3_constants(cfg, geos, device)
+    for r in range(2):
+        crt = compact_raytracing_args(
+            rt, predictor, mesh=Mesh({'data': 1, 'ray': 2}, rank=r))
+        out[f'1x2 rank {r}'] = (crt, BATCH, predictor, t_frames, False)
+    out['2x1'] = (compact_raytracing_args(rt, predictor), BATCH // 2,
+                  predictor, t_frames, False)
+    rt, predictor, t_frames = drive.alma_constants(cfg, alma_geos, device)
+    for r in range(2):
+        crt = compact_raytracing_args(
+            rt, predictor, mesh=Mesh({'data': 1, 'ray': 2}, rank=r),
+            layout='gather')
+        out[f'alma 1x2 rank {r}'] = (crt, BATCH, predictor, t_frames, True)
+    for k, (crt, frames, predictor, t_frames, want_dt) in out.items():
+        checks = recovery_kernel_checks(
+            predictor, crt, t_frames, device, label=f'multigpu {k}',
+            dtypes=('float32',), batch=frames, want_dt=want_dt)
+        out[k] = dict(checks, n=crt.coords.shape[1], frames=frames)
+    return out
+
+
+def multigpu_ranks(config, world, backend, *extra):
+    """Run `world` ranks of drive_multigpu on cuda:0 over `backend`; every
+    rank must exit 0. Returns each rank's (record, arrays)."""
+    import socket
+    work = os.path.dirname(config)
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, WORLD_SIZE=str(world), LOCAL_RANK='0',
+               MASTER_ADDR='localhost', MASTER_PORT=str(port),
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (REPO, os.environ.get('PYTHONPATH')) if p))
+    procs = [subprocess.Popen(
+        [sys.executable, '-m', 'bhnerf_tpu_torch.scripts.drive_multigpu',
+         '--config', config, '--backend', backend, '--device', 'cuda:0',
+         *extra], env=dict(env, RANK=str(r)), cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise RuntimeError(f'multigpu rank {r}/{world} ({backend}) '
+                               f'exited {p.returncode}:\n{out[-4000:]}')
+    return [(json.load(open(os.path.join(work, f'rank_{r}.json'))),
+             dict(np.load(os.path.join(work, f'rank_{r}.npz'))))
+            for r in range(world)]
+
+
+def multigpu_close(label, out, want, rtol):
+    """The share of its tolerance that out's worst element takes against
+    want: |out - want| <= rtol * |want| + a floor of 1e-6 of want's
+    largest magnitude (np.allclose's form); raises above 1."""
+    out, want = np.asarray(out, np.float64), np.asarray(want, np.float64)
+    floor = 1e-6 * np.abs(want).max()
+    share = float((np.abs(out - want) / (rtol * np.abs(want) + floor)).max())
+    if not share <= 1.0:
+        raise RuntimeError(f'multigpu {label}: {share:.3f} of the tolerance '
+                           f'(rtol {rtol}, floor 1e-6 of the max)')
+    return share
+
+
+def multigpu_checks(ref, records, arrays, nccl, card):
+    """(a)-(g) of multigpu_phase on the ranks' outputs; returns the
+    summary."""
+    images, loss, grads, _, _, ref_ms = ref['step']
+    ref_losses, ref_chunk_ms = ref['chunks']
+    n_params = sum(g.size for g in grads.values())
+    image = images.size
+    out = {'card': card, 'n_params': n_params, 'one_process_step_ms':
+           ref_ms, 'one_process_chunk_step_ms': ref_chunk_ms,
+           'one_process_trace_s': ref['trace_s'], 'ranks': []}
+    # (a) the sharded traces
+    bitwise = True
+    for k, table in ref['tables'].items():
+        for f in ('r', 'theta', 'phi', 't', 'pm_r', 'pm_th', 'tau_final'):
+            a, b = arrays[0][f'trace/{k}/{f}'], np.asarray(getattr(table, f))
+            same = np.array_equal(a, b, equal_nan=True)
+            bitwise &= same
+            if not same:
+                multigpu_close(f'trace {k} {f}', a, b, 2e-6)
+            digests = {r['trace_digest'][f'{k}/{f}'] for r in records}
+            if len(digests) != 1:
+                raise RuntimeError(f'multigpu trace {k} {f} differs across '
+                                   f'ranks')
+    log(f'multigpu (a) sharded device traces of the Tutorial-3 screen '
+        f'{NUM_RAYS}x{NUM_RAYS}x{NGEO} and the {ALMA_RAYS}-table ALMA '
+        f'ensemble (n_fine {N_FINE}) over 2 ranks: '
+        f'{"bitwise" if bitwise else "within 2e-6 of"} the one-process '
+        f'trace; {[round(r["trace_s"], 3) for r in records]} s a rank '
+        f'(with the assembly), one process {ref["trace_s"]:.3f} s')
+    out['trace_bitwise'] = bitwise
+    # (b), (c) one step under each mesh
+    for name in ('1x2', '2x1'):
+        a = arrays[0]
+        errs = dict(
+            images=multigpu_close(f'{name} images', a[f'{name}/images'],
+                                  images, 2e-5),
+            loss=multigpu_close(f'{name} loss', a[f'{name}/loss'], loss,
+                                2e-5),
+            grads=max(multigpu_close(f'{name} grad {k}',
+                                     a[f'{name}/grad/{k}'], v, 2e-4)
+                      for k, v in grads.items()))
+        for other in arrays[1:]:
+            if float(other[f'{name}/loss']) != float(a[f'{name}/loss']) or \
+                    any(not np.array_equal(other[f'{name}/grad/{k}'],
+                                           a[f'{name}/grad/{k}'])
+                        for k in grads):
+                raise RuntimeError(f'multigpu {name}: ranks disagree')
+        losses = a[f'{name}/chunk_losses']
+        errs['chunk_losses'] = multigpu_close(f'{name} chunked losses',
+                                              losses, ref_losses, 2e-3)
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise RuntimeError(f'multigpu {name}: chunked losses {losses}')
+        label = ('(b) sample-parallel' if name == '1x2'
+                 else '(c) frame data-parallel')
+        log(f'multigpu {label} Tutorial-3 step, mesh {name}, shares of the '
+            f'tolerances taken: images {errs["images"]:.3f} (rtol 2e-5), '
+            f'loss {errs["loss"]:.3f} (2e-5), gradients {errs["grads"]:.3f} '
+            f'(2e-4); (d) {len(losses)} chunked steps: losses '
+            f'{losses[0]:.6g} -> {losses[-1]:.6g}, {errs["chunk_losses"]:.3f} '
+            f'of rtol 2e-3; local N '
+            f'{[r["local_n"][name] for r in records]} (one process '
+            f'{ref["local_n"]}); step ms per rank '
+            f'{[round(r["step_ms"][name], 3) for r in records]}, chunked '
+            f'{[round(r["step_ms"][name + "/chunks"], 3) for r in records]}'
+            f'; one process {ref_ms:.3f} / {ref_chunk_ms:.3f} ms ({card}; '
+            f'two ranks share one card: no scaling figure)')
+        out[name] = errs
+    # (e) ALMA 'lc'
+    _, a_loss, a_grads, _, _, a_ms = ref['alma']
+    a = arrays[0]
+    e_err = dict(loss=multigpu_close('alma loss', a['alma/loss'], a_loss,
+                                     2e-5),
+                 grads=max(multigpu_close(f'alma grad {k}',
+                                          a[f'alma/grad/{k}'], v, 2e-4)
+                           for k, v in a_grads.items()))
+    log(f"multigpu (e) ALMA 'lc' step with 3-Stokes weights, mesh 1x2, shares"
+        f' of the tolerances taken: loss {e_err["loss"]:.3f} (rtol 2e-5), '
+        f'gradients {e_err["grads"]:.3f} (2e-4; t_injection learned); step ms '
+        f'{[round(r["step_ms"]["alma 1x2"], 3) for r in records]}, one '
+        f'process {a_ms:.3f}')
+    out['alma'] = e_err
+    # (f) checkpoints
+    c0, c1 = (r['checkpoints'] for r in records)
+    if c0['writes'] != [2, 4] or c1['writes'] != [] or \
+            any(c['restored_step'] != 4 or 'checkpoint_4' not in
+                c['listing'] or 'disagrees across' not in
+                (c['disagree_error'] or '') for c in (c0, c1)):
+        raise RuntimeError(f'multigpu checkpoints: {c0} {c1}')
+    log(f'multigpu (f) checkpoints: rank 0 wrote steps {c0["writes"]}, rank 1 '
+        f'none; both restored step 4; rank-local directories raised on both')
+    # (g) launches and the census; the ALMA test step sums its 3-Stokes
+    # images with the lightcurve, its gradient step the lightcurve alone
+    lightcurve = BATCH * 3
+    bound = BATCH * 3 * NUM_RAYS ** 2 + lightcurve
+    expect = {
+        '1x2/forward': {'image over ray': {'count': 1, 'largest': image}},
+        '1x2/step': {'image over ray': {'count': 1, 'largest': image},
+                     'grad over ray': {'count': 1, 'largest': n_params}},
+        '2x1/forward': {},
+        '2x1/step': {'grad over data': {'count': 1, 'largest': n_params},
+                     'loss over data': {'count': 1, 'largest': 1}},
+        'alma 1x2/forward': {'image over ray': {'count': 1,
+                                                'largest': bound}},
+        'alma 1x2/step': {
+            'lightcurve over ray': {'count': 1, 'largest': lightcurve},
+            'grad over ray': {'count': 1, 'largest': n_params + 1}}}
+    for r in records:
+        for k, want in expect.items():
+            if r['census'][k] != want:
+                raise RuntimeError(f'multigpu census {k}: {r["census"][k]}')
+        training = [v for k, c in r['census'].items() if k != 'trace'
+                    for v in c.values()]
+        if max(v['largest'] for v in training) > max(bound, n_params + 1):
+            raise RuntimeError(f'multigpu: a collective is sample-sized: '
+                               f'{r["census"]}')
+        if min(r['launches'].values()) <= 0:
+            raise RuntimeError(f'multigpu rank {r["rank"]} launched no '
+                               f'kernel of {r["launches"]}')
+        out['ranks'].append({k: r[k] for k in ('rank', 'launches', 'census',
+                                               'step_ms', 'local_n',
+                                               'trace_s', 'seconds')})
+    log(f'multigpu (g) launches per rank {[r["launches"] for r in records]};'
+        f' census of rank 0: {records[0]["census"]}')
+    # one rank over NCCL
+    record, nccl_arrays = nccl[0]
+    if record['nccl_backend'] != 'nccl' or not record['nccl_identity'] or \
+            not np.isfinite(record['loss']):
+        raise RuntimeError(f'multigpu NCCL rank: {record}')
+    multigpu_close('NCCL step images', nccl_arrays['nccl/images'], images,
+                   2e-5)
+    log(f'multigpu NCCL: one rank initialised on the card, a Tutorial-3 step '
+        f'({record["step_ms"]["1x1"]:.3f} ms, loss {record["loss"]:.6g}), '
+        f'an all-reduce and a broadcast of {record["nccl_elements"]} '
+        f'gradients on the card (identity for one rank)')
+    out['nccl'] = {k: record[k] for k in ('nccl_backend', 'nccl_identity',
+                                          'nccl_elements', 'loss',
+                                          'step_ms', 'launches')}
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2776,12 +3106,14 @@ def main():
                                                    eht, device)
     synthetic = synthetic_phase(kernels, geos, device)
     production = production_phase(kernels, device)
+    multigpu = multigpu_phase(kernels, geos, device)
     trace_entry['production_launches'] = production['launches_total'][
         'trace_rays']
     trace_entry['fit_chi2_df_launches'] = fit_script['chi2_device_launches']
     trace_entry['synthetic_launches'] = synthetic['trace_launches']
     trace_entry['synthetic_rho_scan'] = synthetic['equatorial'][
         'rho_scan_kernel']
+    trace_entry['multigpu_launches'] = multigpu['trace_launches']
     for entry, count in zip(kernels, launches):
         entry['launches'] = count
         entry['launches_per_step'] = count / STEPS
@@ -2795,6 +3127,7 @@ def main():
     print(json.dumps({'device_trace': device_trace}), flush=True)
     print(json.dumps({'synthetic': synthetic}), flush=True)
     print(json.dumps({'production': production}), flush=True)
+    print(json.dumps({'multigpu': multigpu}), flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1073,3 +1073,97 @@ def test_grid_predictor_on_card_matches_cpu(cuda_device):
     np.testing.assert_allclose(em_d, em_h, atol=1e-6, rtol=0)
     scale = np.abs(g_h).max()
     np.testing.assert_allclose(g_d / scale, g_h / scale, atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_card_match_one_process(cuda_device, tmp_path):
+    """Two gloo ranks on cuda:0 (bhnerf_tpu_torch.scripts.drive_multigpu,
+    NCCL refuses two ranks on one device) at a small size: the sharded
+    device traces equal the one-process traces bitwise; under mesh (1, 2)
+    the sample-parallel 'full' step's images match one process on the
+    card to rtol 2e-5, its loss to 2e-5 and its gradients to 2e-4 (each
+    with a floor of 1e-6 of the largest magnitude), with one image
+    all-reduce per forward and one gradient all-reduce per step; each rank
+    launched the forward, backward and trace kernels."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    from bhnerf_tpu_torch.scripts import drive_multigpu as drive
+
+    fov, npix = 16.0, 16
+    axis = np.linspace(-fov / 2, fov / 2, npix)
+    alpha, beta = np.meshgrid(axis, axis, indexing='ij')
+    kw = dict(spin=0.2, inclination=float(np.deg2rad(60)), ngeo=32,
+              n_fine=1024)
+    geos = drive.trace_geodesics(alpha, beta, backend='device',
+                                 device=cuda_device, **kw)
+    model = {'spin': 0.0, 'fov_M': 40.0, 'z_width': 4, 'rmin': 'ISCO',
+             'Q_frac': 0.85, 'b_consts': {'arad': 0, 'avert': 1, 'ator': 0},
+             'Omega_dir': 'cw', 'Omega_frac': 1.0, 'num_alpha': npix,
+             'num_beta': npix, 't_start_obs': 9.34}
+    a_alpha, a_beta = drive.alma_screens(model, 2, 0)
+    alma_kw = dict(kw, spin=0.0)
+    alma_geos = drive.trace_geodesics(a_alpha[0], a_beta[0],
+                                      backend='device', device=cuda_device,
+                                      **alma_kw)
+    t3 = dict(predictor=dict(scale=fov / 2, rmin=3.0, rmax=fov / 2,
+                             z_width=2.0, net_depth=2, net_width=32),
+              fov=fov, nt=8, span_M=200.0, batch=4, seed=0, lr=1e-3)
+    alma_cfg = dict(model=model, predictor=dict(net_depth=2, net_width=32,
+                                                learn_injection=True),
+                    rot_angle=0.0, sigma=[0.15, 0.01, 0.01], nt=8, seed=0)
+    trace = {'t3': dict(kw, alpha=alpha, beta=beta),
+             'alma': dict(alma_kw, alpha=a_alpha, beta=a_beta)}
+    config = drive.write_config(str(tmp_path), geos, alma_geos, t3,
+                                alma_cfg, trace, ('1x2',), 10, 5)
+    cfg = json.loads((tmp_path / 'config.json').read_text())
+    ref = drive.one_process(cfg, cuda_device)
+
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        port = s.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, WORLD_SIZE='2', LOCAL_RANK='0',
+               MASTER_ADDR='localhost', MASTER_PORT=str(port),
+               PYTHONPATH=repo)
+    procs = [subprocess.Popen(
+        [sys.executable, '-m', 'bhnerf_tpu_torch.scripts.drive_multigpu',
+         '--config', config, '--backend', 'gloo', '--device', 'cuda:0'],
+        env=dict(env, RANK=str(r)), cwd=repo, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out
+    records = [json.loads((tmp_path / f'rank_{r}.json').read_text())
+               for r in range(2)]
+    arrays = [np.load(tmp_path / f'rank_{r}.npz') for r in range(2)]
+
+    for k, table in ref['tables'].items():
+        for f in drive.TABLE_FIELDS:
+            np.testing.assert_array_equal(arrays[0][f'trace/{k}/{f}'],
+                                          np.asarray(getattr(table, f)))
+    images, loss, grads = ref['step'][:3]
+    close = lambda a, b, rtol: np.testing.assert_allclose(
+        a, b, rtol=rtol, atol=1e-6 * np.abs(b).max())
+    close(arrays[0]['1x2/images'], images, 2e-5)
+    close(float(arrays[0]['1x2/loss']), loss, 2e-5)
+    for k, g in grads.items():
+        close(arrays[0][f'1x2/grad/{k}'], g, 2e-4)
+        np.testing.assert_array_equal(arrays[1][f'1x2/grad/{k}'],
+                                      arrays[0][f'1x2/grad/{k}'])
+    n_params = sum(g.size for g in grads.values())
+    for r in records:
+        assert r['census']['1x2/forward'] == {
+            'image over ray': {'count': 1, 'largest': images.size}}
+        assert r['census']['1x2/step'] == {
+            'image over ray': {'count': 1, 'largest': images.size},
+            'grad over ray': {'count': 1, 'largest': n_params}}
+        assert min(r['launches'].values()) > 0, r['launches']
+        assert r['checkpoints']['restored_step'] == 4

@@ -33,6 +33,7 @@ from bhnerf_tpu_torch.geodesics import (Geodesics, image_plane_geos,
                                         trace_geodesics)
 from bhnerf_tpu_torch.geodesics import integrator
 from bhnerf_tpu_torch.models.fields import NeRFPredictor
+from bhnerf_tpu_torch.parallel import create_mesh
 from bhnerf_tpu_torch.scripts.drive_device_geos import (compare,
                                                        compare_phi_signs,
                                                        table)
@@ -290,8 +291,9 @@ def test_chi2_df_device_backend_within_one_percent(tmp_path):
 
 def test_backend_errors_and_fillna():
     """The reference's refusals (dataset.py:266-276): an unknown backend
-    and float64 on the device backend raise ValueError; a mesh is not
-    ported and raises NotImplementedError, on either backend.
+    and float64 on the device backend raise ValueError, and so does a
+    mesh with the host backend (dataset.py:289-291); on the device
+    backend a mesh of one process traces the table of no mesh.
     Geodesics.fillna returns the table itself (it holds no NaN)."""
     a = np.array([[5.0]])
     b = np.zeros_like(a)
@@ -300,12 +302,16 @@ def test_backend_errors_and_fillna():
     with pytest.raises(ValueError, match='float32'):
         trace_geodesics(a, b, 0.5, 1.0, backend='device', dtype=np.float64,
                         device='cpu')
-    for backend in ('cpu', 'device'):
-        with pytest.raises(NotImplementedError, match='mesh'):
-            trace_geodesics(a, b, 0.5, 1.0, backend=backend, mesh=object(),
-                            device='cpu')
+    mesh = create_mesh(device='cpu')
+    with pytest.raises(ValueError, match='device'):
+        trace_geodesics(a, b, 0.5, 1.0, backend='cpu', mesh=mesh,
+                        device='cpu')
     g = trace_geodesics(a, b, 0.5, 1.0, ngeo=4, n_fine=64, backend='device',
                         device='cpu')
+    g_mesh = trace_geodesics(a, b, 0.5, 1.0, ngeo=4, n_fine=64,
+                             backend='device', device='cpu', mesh=mesh)
+    for f in ('r', 'theta', 'phi', 't', 'tau_final'):
+        np.testing.assert_array_equal(getattr(g_mesh, f), getattr(g, f))
     assert g.fillna() is g and g.fillna(1.0) is g
     assert np.isfinite(g.r).all()
 

@@ -36,6 +36,7 @@ from bhnerf_tpu_torch import (constants, emission, kgeo, network,
 from bhnerf_tpu_torch.geodesics import image_plane_geos
 from bhnerf_tpu_torch.models import fields
 from bhnerf_tpu_torch.ops import fused
+from bhnerf_tpu_torch.parallel import Mesh, create_mesh
 from bhnerf_tpu_torch.train import (TrainState, TrainStep, make_optimizer,
                                     raytracing_args, save_checkpoint)
 from _torch_cores import cores_per_worker  # noqa: F401 (autouse)
@@ -452,7 +453,9 @@ def test_integrated_posenc_matches_jax(x_cov, min_deg):
 # ---------------------------------------------------------------------------
 def test_shard_without_a_mesh():
     """Leading axes become (device count, -1): one without a card; arrays,
-    tensors and their nests alike. mesh= is not ported and raises."""
+    tensors and their nests alike. With a mesh, shard gives this rank's
+    block of the leading axis by its 'data' coordinate (the whole axis
+    for one process)."""
     n = max(torch.cuda.device_count(), 1)
     xs = {'a': np.arange(24).reshape(6, 4),
           'b': [torch.arange(12.0).reshape(6, 2)]}
@@ -461,5 +464,8 @@ def test_shard_without_a_mesh():
     assert isinstance(out['b'][0], torch.Tensor)
     assert tuple(out['b'][0].shape) == (n, 6 // n, 2)
     np.testing.assert_array_equal(out['a'].reshape(6, 4), xs['a'])
-    with pytest.raises(NotImplementedError):
-        optimization.shard(xs, mesh=object())
+    whole = optimization.shard(xs, mesh=create_mesh(device='cpu'))
+    np.testing.assert_array_equal(whole['a'], xs['a'])
+    half = optimization.shard(xs, mesh=Mesh({'data': 2, 'ray': 1}, rank=1))
+    np.testing.assert_array_equal(half['a'], xs['a'][3:])
+    assert torch.equal(half['b'][0], xs['b'][0][3:])

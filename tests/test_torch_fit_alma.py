@@ -30,6 +30,7 @@ import torch
 
 from bhnerf_tpu_torch import alma, config, units
 from bhnerf_tpu_torch.models.fields import NeRFPredictor, params_to_numpy
+from bhnerf_tpu_torch.parallel import create_mesh
 from bhnerf_tpu_torch.scripts import fit_alma_lp_apr11_sgra_flare as fit
 from bhnerf_tpu_torch.train import state as state_lib
 from bhnerf_tpu_torch.train import step
@@ -226,22 +227,22 @@ def test_chi2_lightcurves_matches_jax(tmp_path, small_fit, rmin, rmax):
 
 
 def test_chi2_df_backend_and_mesh_refusals():
-    """chi2_df refuses the device tracer with a mesh (sharding the trace
-    is not ported; neither is a mesh with the host trace) and refuses an
-    unknown backend, before it does any work. Without a mesh the device
-    tracer is taken (tests/test_torch_device_geos.py runs it): over a
-    grid without checkpoints it traces nothing and leaves every cell
-    NaN."""
-    for backend in ('cpu', 'device'):
-        with pytest.raises(NotImplementedError, match='mesh'):
-            alma.chi2_df([60.0], 0.0, [1], {}, '{}-{}', None, None,
-                         backend=backend, mesh=object())
+    """chi2_df refuses a mesh with the host trace (the reference's
+    trace_geodesics refuses it) and an unknown backend, before it does
+    any work. The device tracer is taken with or without a mesh
+    (tests/test_torch_device_geos.py runs it): over a grid without
+    checkpoints it traces nothing and leaves every cell NaN."""
+    mesh = create_mesh(device='cpu')
+    with pytest.raises(ValueError, match='device'):
+        alma.chi2_df([60.0], 0.0, [1], {}, '{}-{}', None, None,
+                     backend='cpu', mesh=mesh)
     with pytest.raises(ValueError, match='backend'):
         alma.chi2_df([60.0], 0.0, [1], {}, '{}-{}', None, None,
                      backend='tpu')
-    df = alma.chi2_df([60.0], 0.0, [1], {}, '{}-{}', None, None,
-                      backend='device', device='cpu')
-    assert df.shape == (1, 1) and np.isnan(df.values).all()
+    for m in (None, mesh):
+        df = alma.chi2_df([60.0], 0.0, [1], {}, '{}-{}', None, None,
+                          backend='device', mesh=m, device='cpu')
+        assert df.shape == (1, 1) and np.isnan(df.values).all()
 
 
 @pytest.fixture(scope='module')
