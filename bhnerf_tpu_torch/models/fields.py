@@ -92,11 +92,11 @@ def _mlp_dims(in_dim, net_depth, net_width, out_channel, do_skip):
 
 def init_mlp_params(generator, in_dim, net_depth=4, net_width=128,
                     out_channel=1, do_skip=True, dtype=torch.float32,
-                    device='cpu'):
+                    device='cuda'):
     """he_uniform-initialized MLP parameters as the reference's dict
     {'dense_i': {'kernel' (in, out), 'bias' (out,)}} (reference
     fields.py:93-114), drawn on the host from `generator` (matched in
-    distribution, not bitwise)."""
+    distribution, not bitwise), then moved to `device`."""
     params = {}
     for i, (d_in, d_out) in enumerate(_mlp_dims(in_dim, net_depth,
                                                  net_width, out_channel,

@@ -5,8 +5,9 @@ at full width, recover a synthetic hotspot from its movie in 1000 steps
 (per step and in chunks) and from an ngEHT observation in 5000, run
 the ALMA fit script's sweep, trace geodesic tables on the card with
 the float32 tracer kernel, run equatorial lensing and the
-synthetic-flare workflow on it, and run the multi-GPU support as two
-ranks sharing the one CUDA device.
+synthetic-flare workflow on it, run the multi-GPU support as two
+ranks sharing the one CUDA device, and run the tutorials and the last
+examples.
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 nvcc:
@@ -77,9 +78,10 @@ Phases (any failure raises and exits non-zero):
   10. the EHT visibility path (bench_recovery.py --eht): the same hotspot's
      movie over the ngEHT window 4.0-15.5 UT rendered on the card and
      observed by the ngEHT array with thermal noise (observe_same), then
-     TrainStep.eht('vis', dense) for EHT_STEPS bfloat16 steps at npix 64,
-     held to the bar of EHT_MIN_PSNR dB and EHT_MAX_LC_ERR_PCT, with nvis,
-     the bytes of the operator on the card and a profile; then a 128x128
+     TrainStep.eht('vis', dense) for EHT_STEPS bfloat16 steps at npix 64
+     in chunks of EHT_SCAN_CHUNK, held to the bar of EHT_MIN_PSNR dB and
+     EHT_MAX_LC_ERR_PCT, with nvis, the bytes of the operator on the card
+     and a profile; then a 128x128
      table from the host tracer, both kernels against their plain
      versions at its sample count over the EHT window in float32 and
      bfloat16, the dense and the factored operator against each other on
@@ -110,7 +112,8 @@ Phases (any failure raises and exits non-zero):
      Tutorial-3 device table against the host one, every ray whose
      crossing sample differs explained (ring_differences); then
      generate_synthetic_lightcurves at its defaults (64x64x100, 123
-     frames, fov 40 M, 60 deg) for SYNTH_SOURCES, rendered on the card,
+     frames, fov 40 M, 60 deg) for SYNTH_SOURCES, their one screen traced
+     once at N_FINE (memo_traces), rendered on the card,
      fit_synthetic_lp_flares' sweep on the hotspot at its configuration
      (4x128, Q/U 'lc', batch 6, fused, chunks of 500) over SYNTH_INCS x
      one seed cut to SYNTH_STEPS steps with MemoryWriter (launch counts,
@@ -121,12 +124,13 @@ Phases (any failure raises and exits non-zero):
      tracer.
   13. the ALMA production drive (lines starting `production`):
      bhnerf_tpu_torch.scripts.drive_alma_production at full width (64x64
-     rays x 100 samples, 4x128, a 10-variant ensemble, batch 6, chunks of
-     500) cut to PROD_STEPS steps with its host tables at PROD_N_FINE:
-     leg 1 in a child process stopped by SIGTERM after its first periodic
-     checkpoint, leg 2 resumed from that step to PROD_STEPS through the
-     fit's --resume, finite train and validation chi^2 over a fresh
-     10-variant ensemble, one forward and one backward launch a training
+     rays x 100 samples, 4x128, batch 6, chunks of 500) cut to PROD_STEPS
+     steps and a PROD_ENSEMBLE-variant ensemble with its host tables at
+     PROD_N_FINE: leg 1 in a child process stopped by SIGTERM after its
+     first periodic checkpoint, leg 2 resumed from that step to
+     PROD_STEPS through the fit's --resume, finite train and validation
+     chi^2 over a fresh ensemble, one forward and one backward launch a
+     training
      step (the children print their counts); both kernels against their
      plain versions in float32 at the fit's N.
   14. multi-GPU (lines starting `multigpu`; multigpu_phase): two ranks
@@ -137,9 +141,21 @@ Phases (any failure raises and exits non-zero):
      steps under each, an ALMA 'lc' step under (1, 2), rank-0
      checkpoints, each rank's kernel launches and collectives; then one
      rank over NCCL.
-The eight lines before the last are the JSON recovery, chunked-loop, EHT,
-device-trace, synthetic, production and multi-GPU summaries and the JSON
-kernel summary; the last line is {"ok": true, "device": {...}}.
+  15. the tutorials and the last examples (lines starting `tutorials`;
+     tutorials_phase): the five tutorials of bhnerf_tpu_torch.tutorials
+     and the examples recovery_animation and selfcal_known_corruption at
+     full width in this process, their host tables at N_FINE, one a
+     screen: tutorial 3's plain-path recovery held to RECOVERY_MIN_PSNR,
+     tutorial 4's 2000 EHT losses finite and falling, tutorial 5's render
+     of tutorial 3's checkpoint, recovery_animation's 1000 fused steps
+     (one backward launch a step) and its 24 views, the exact
+     self-calibration; both kernels against their plain versions at
+     recovery_animation's N; both volume compositors at the tutorials'
+     full shapes against the CPU, with their ms and peak device memory.
+The nine lines before the last are the JSON recovery, chunked-loop, EHT,
+device-trace, synthetic, production, multi-GPU and tutorials summaries
+and the JSON kernel summary; the last line is {"ok": true, "device":
+{...}}.
 """
 import concurrent.futures
 import contextlib
@@ -203,6 +219,7 @@ FIT_RESUME_STEPS = 750
 # hotspot observed by the ngEHT array in NT scans of EHT_TINT seconds over
 # 4.0-15.5 UT, fitted to its complex visibilities
 EHT_STEPS = 5000
+EHT_SCAN_CHUNK = 500            # bench_recovery.py's chunks (:143-168)
 EHT_TINT = 30.0
 EHT_NPIX_PRODUCTION = 128       # the image size of the factored operator
 EHT_OPERATOR_STEPS = 200        # steps of each operator at that size
@@ -227,11 +244,14 @@ SYNTH_SOURCES = ('hotspot', 'tube')
 SYNTH_INCS = (40.0, 60.0)
 SYNTH_STEPS = 500
 # the production phase: the ALMA production drive at full width (64x64
-# rays x 100 samples, 4x128, a 10-variant ensemble, batch 6, chunks of
-# 500), cut to PROD_STEPS steps (a checkpoint every 500, SIGTERM after the
-# first) and its 30 host tables to PROD_N_FINE fine steps (below 512 a
-# table costs no less: its second pass and the physics dominate)
+# rays x 100 samples, 4x128, batch 6, chunks of 500), cut to PROD_STEPS
+# steps (a checkpoint every 500, SIGTERM after the first), its ensemble
+# from 10 sub-pixel variants to PROD_ENSEMBLE (the drive's legs and its
+# evaluation each trace one host table a variant: 12 tables, not 30) and
+# its tables to PROD_N_FINE fine steps (below 512 a table costs no less:
+# its second pass and the physics dominate)
 PROD_STEPS = 1500
+PROD_ENSEMBLE = 4
 PROD_N_FINE = 512
 # float32 operations of one RK4 step of the tracer (ops/csrc/
 # geodesic_trace.cu), each division counted as one: four right-hand sides
@@ -1678,7 +1698,8 @@ def eht_fit(geos, hotspot, device):
     """(a) bench_recovery.py --eht at npix 64 through the port's entry
     points: the recovery predictor (rmin 0) in bfloat16, compacted in the
     'gather' layout, TrainStep.eht('vis', fused=True, operator='dense'),
-    Adam at lr 1e-3 -> 1e-5 for EHT_STEPS steps of batch BATCH; psnr_3d
+    Adam at lr 1e-3 -> 1e-5 for EHT_STEPS steps of batch BATCH in chunks
+    of EHT_SCAN_CHUNK, as bench_recovery.py runs them; psnr_3d
     and lc_err_pct against the bar; then both kernels against their plain
     versions in bfloat16 at the fit's N over the EHT window. Returns
     (result, launches)."""
@@ -1705,7 +1726,7 @@ def eht_fit(geos, hotspot, device):
     fused.render_bwd.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    opt.run(BATCH, train_step, crt, verbose=False)
+    opt.run(BATCH, train_step, crt, verbose=False, scan_chunk=EHT_SCAN_CHUNK)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = (fused.render_fwd.launches, fused.render_bwd.launches)
@@ -1720,9 +1741,11 @@ def eht_fit(geos, hotspot, device):
                        / np.mean(lc_true))
     result = {'psnr_3d': psnr_3d, 'lc_err_pct': lc_err_pct, 'wall_s': wall_s,
               'steps_per_s': EHT_STEPS / wall_s, 'n': crt.coords.shape[1],
-              'steps': opt.state.step, 'final_loss': float(opt.loss), **data}
+              'steps': opt.state.step, 'final_loss': float(opt.loss),
+              'scan_chunk': EHT_SCAN_CHUNK, **data}
     log(f'EHT fit, npix {NUM_RAYS}, dense, bfloat16: {EHT_STEPS} steps of '
-        f'batch {BATCH} at N = {result["n"]} in {wall_s:.2f} s '
+        f'batch {BATCH} in chunks of {EHT_SCAN_CHUNK} at N = {result["n"]} '
+        f'in {wall_s:.2f} s '
         f'({result["steps_per_s"]:.2f} steps/s); launches fwd {launches[0]}, '
         f'bwd {launches[1]}; final loss {result["final_loss"]:.6g}; psnr_3d '
         f'{psnr_3d:.2f} dB (bar {EHT_MIN_PSNR}), lc_err_pct {lc_err_pct:.4f} '
@@ -1740,7 +1763,7 @@ def eht_fit(geos, hotspot, device):
                            f'{lc_err_pct:.4f}%')
     result['device_ms_per_step'] = profile_path(
         'EHT npix 64 dense bf16', opt, train_step, crt, 1e3 / result[
-            'steps_per_s'])
+            'steps_per_s'], steps=50, scan_chunk=EHT_SCAN_CHUNK)
     result['bfloat16'] = recovery_kernel_checks(
         predictor, crt, np.asarray(t_frames.value, np.float32), device,
         label=f'EHT npix {NUM_RAYS}', dtypes=('bfloat16',))['bfloat16']
@@ -2545,26 +2568,33 @@ def synthetic_phase(kernels, t3_geos, device):
         'ring_differences': {str(k): v for k, v in rings.items()}}
 
     with tempfile.TemporaryDirectory() as root:
-        # (b) the generator at its defaults, rendered on the card
+        # (b) the generator at its defaults, rendered on the card, the
+        # sources' one screen traced once, at N_FINE
         outs, gen_s = {}, {}
-        for source in SYNTH_SOURCES:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            outs[source] = gen.main(['--out', root, '--name', source,
-                                     '--source', source])
-            torch.cuda.synchronize()
-            gen_s[source] = time.perf_counter() - t0
-            lc = np.loadtxt(outs[source]['csv'], delimiter=',', skiprows=1)
-            flare = np.load(outs[source]['flare'])['data']
-            log(f'synthetic generate_synthetic_lightcurves --source {source}'
-                f' (64x64x100 rays, 123 frames, fov 40 M, 60 deg): '
-                f'{gen_s[source]:.1f} s; I {lc[:, 1].min():.4f}.. '
-                f'{lc[:, 1].max():.4f} Jy, |Q|+|U| max '
-                f'{np.abs(lc[:, 2:]).max():.4f} Jy, flare {flare.shape}')
-            if lc.shape != (123, 4) or not np.isfinite(lc).all() \
-                    or not np.abs(lc[:, 2:]).max() > 0 \
-                    or flare.shape != (64, 64, 64):
-                raise RuntimeError(f'synthetic: bad {source} data')
+        with memo_traces() as memo:
+            for source in SYNTH_SOURCES:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs[source] = gen.main(['--out', root, '--name', source,
+                                         '--source', source])
+                torch.cuda.synchronize()
+                gen_s[source] = time.perf_counter() - t0
+                lc = np.loadtxt(outs[source]['csv'], delimiter=',',
+                                skiprows=1)
+                flare = np.load(outs[source]['flare'])['data']
+                log(f'synthetic generate_synthetic_lightcurves --source '
+                    f'{source} (64x64x100 rays, 123 frames, fov 40 M, 60 '
+                    f'deg): {gen_s[source]:.1f} s; I {lc[:, 1].min():.4f}..'
+                    f' {lc[:, 1].max():.4f} Jy, |Q|+|U| max '
+                    f'{np.abs(lc[:, 2:]).max():.4f} Jy, flare '
+                    f'{flare.shape}')
+                if lc.shape != (123, 4) or not np.isfinite(lc).all() \
+                        or not np.abs(lc[:, 2:]).max() > 0 \
+                        or flare.shape != (64, 64, 64):
+                    raise RuntimeError(f'synthetic: bad {source} data')
+        if memo.traced != 1:
+            raise RuntimeError(f'synthetic: the generator traced '
+                               f'{memo.traced} host tables, not 1')
 
         # the synthetic fit at its configuration, cut to SYNTH_STEPS steps
         raw = yaml.safe_load(fit.CONFIG_PATH.read_text())
@@ -2685,12 +2715,13 @@ def synthetic_phase(kernels, t3_geos, device):
 
 def production_phase(kernels, device):
     """The ALMA production drive (bhnerf_tpu_torch.scripts.
-    drive_alma_production) at full width and cut depth: leg 1 runs the
-    fit script in a child process (--writer memory) on the seeded
-    Apr11-like lightcurve with the 10-variant ensemble and is sent SIGTERM
-    once checkpoint_<save period> exists; leg 2 resumes it through
-    --resume to PROD_STEPS; then chi^2 of the train and validation frames
-    over a fresh 10-variant ensemble. Fails unless leg 2 resumed at leg
+    drive_alma_production) at full width and cut depth (PROD_STEPS steps,
+    a PROD_ENSEMBLE-variant ensemble, the drive's ENSEMBLE for the call):
+    leg 1 runs the fit script in a child process (--writer memory) on the
+    seeded Apr11-like lightcurve and is sent SIGTERM once
+    checkpoint_<save period> exists; leg 2 resumes it through --resume to
+    PROD_STEPS; then chi^2 of the train and validation frames over a
+    fresh ensemble of that size. Fails unless leg 2 resumed at leg
     1's stop, both chi^2 are finite and every training step launched one
     forward and one backward kernel. Then both kernels against their
     plain versions in float32 at the fit's N: variant 0 of the
@@ -2705,8 +2736,13 @@ def production_phase(kernels, device):
 
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as work:
-        result, evaluation = prod.drive(PROD_STEPS, work, n_fine=PROD_N_FINE,
-                                        log=lambda m: log(f'production {m}'))
+        ensemble, prod.ENSEMBLE = prod.ENSEMBLE, PROD_ENSEMBLE
+        try:
+            result, evaluation = prod.drive(
+                PROD_STEPS, work, n_fine=PROD_N_FINE,
+                log=lambda m: log(f'production {m}'))
+        finally:
+            prod.ENSEMBLE = ensemble
         run_dir = os.path.join(work, 'ckpt', 'inc_60.0.seed_4')
         predictor = NeRFPredictor.from_yml(run_dir)
     drive_s = time.perf_counter() - t_phase
@@ -2722,7 +2758,7 @@ def production_phase(kernels, device):
         f'effective, evaluation {result["evaluate_s"]} s); launches '
         f'{parts} (n_fine {PROD_N_FINE})')
     train_bwd = (parts['leg1']['render_bwd'], parts['leg2']['render_bwd'])
-    if not result['ok'] or result['ensemble'] != 10 \
+    if not result['ok'] or result['ensemble'] != PROD_ENSEMBLE \
             or not 0 < stop < PROD_STEPS \
             or train_bwd != (stop, PROD_STEPS - stop) \
             or parts['leg1']['render_fwd'] <= stop \
@@ -3055,6 +3091,299 @@ def multigpu_checks(ref, records, arrays, nccl, card):
     return out
 
 
+def memo_traces(seed=None):
+    """A context in which dataset.trace_geodesics traces at N_FINE fine
+    steps (the tutorials' own: the trace defaults' 8192, and 8192 in
+    recovery_animation) and traces a screen once, the screen keyed by its
+    alpha and beta, spin, inclination, ngeo and backend (the tutorials
+    vary nothing else). `seed`, a host table at N_FINE (the Tutorial-3
+    table of host_precompute, whose screen tutorials 2 and 3 and
+    recovery_animation trace), is entered first. `calls` and `traced`
+    count the calls and the traces."""
+    from bhnerf_tpu_torch.geodesics import dataset
+
+    def key(alpha, beta, spin, inclination, ngeo, backend):
+        return (np.asarray(alpha, np.float64).tobytes(),
+                np.asarray(beta, np.float64).tobytes(), float(spin),
+                float(inclination), int(ngeo), backend)
+
+    class Memo:
+        def __enter__(self):
+            self.trace = dataset.trace_geodesics
+            self.cache = {} if seed is None else {
+                key(seed.alpha, seed.beta, seed.spin, seed.inc, seed.ngeo,
+                    'cpu'): seed}
+            self.calls = self.traced = 0
+
+            def traced(alpha, beta, spin, inclination, **kw):
+                kw['n_fine'] = N_FINE
+                self.calls += 1
+                k = key(alpha, beta, spin, inclination, kw.get('ngeo', 100),
+                        kw.get('backend', 'cpu'))
+                if k not in self.cache:
+                    self.traced += 1
+                    self.cache[k] = self.trace(alpha, beta, spin,
+                                               inclination, **kw)
+                return self.cache[k]
+
+            dataset.trace_geodesics = traced
+            return self
+
+        def __exit__(self, *exc):
+            dataset.trace_geodesics = self.trace
+            return False
+
+    return Memo()
+
+
+def compositor_check(label, composite, full, device, stride=8):
+    """One volume compositor at a tutorial's full shape on the card: its
+    mean ms (CUDA events), the device memory it takes at its peak beyond
+    what was allocated before it, and its outputs against the same
+    function on the CPU at every stride-th pixel of each image axis, each
+    within 2e-4 of its maximum (tests/test_torch_visualization.py's
+    bound against the JAX package). composite(device, stride) runs it on
+    `device` over the sub-sampled pixels."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    card = composite(device, 1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device) - base
+    ms = cuda_ms(lambda: composite(device, 1), repeats=5)
+    cpu = composite('cpu', stride)
+    errs = []
+    for c, h in zip(card, cpu):
+        c = c[::stride, ::stride].cpu().numpy()
+        h = h.numpy()
+        scale = float(np.abs(h).max())
+        if c.shape != h.shape or not np.isfinite(c).all():
+            raise RuntimeError(f'{label}: bad outputs {c.shape}')
+        errs.append(float(np.abs(c - h).max()) / scale if scale else
+                    float(np.abs(c).max()))
+    pixels = tuple(card[0].shape)
+    log(f'tutorials compositor {label}: {pixels[0]}x{pixels[1]} pixels x '
+        f'{full} samples on the card in {ms:.3f} ms, peak '
+        f'{peak / 2**20:.1f} MiB beyond its inputs; against the CPU at '
+        f'every {stride}th pixel: max error {max(errs):.3e} of each '
+        f"output's maximum (bound 2e-4)")
+    if max(errs) > 2e-4:
+        raise RuntimeError(f'{label}: the card differs from the CPU: {errs}')
+    return {'pixels': pixels, 'samples': full, 'ms': ms,
+            'peak_bytes': int(peak), 'max_rel_err_vs_cpu': max(errs)}
+
+
+def compositor_checks(volumes, device):
+    """Both volume compositors at the full shapes of tutorial 5 (384x384
+    pixels x 192 samples) and recovery_animation (256x256 x 160), on the
+    volume each rendered: _vv_composite with the BH sphere and the cube,
+    as they call it, and _transfer_composite with ipyvolume_3d's default
+    camera and transfer nodes."""
+    import torch
+    from bhnerf_tpu_torch import visualization as vis
+    out = {}
+    for name, res, samples, bh, vol in (
+            ('tutorial5', 384, 192, 2.0, volumes['tutorial5']),
+            ('recovery_animation', 256, 160, 1.0 + np.sqrt(1 - SPIN ** 2),
+             volumes['recovery_animation'])):
+        extent = FOV / 2
+
+        def rays(fov, azimuth, zenith, distance, dev, stride):
+            cam, dirs = vis.VolumeVisualizer(
+                (res, res), fov=fov, device='cpu')._rays(azimuth, zenith,
+                                                         distance)
+            return cam.to(dev), dirs[::stride, ::stride].contiguous().to(dev)
+
+        def vv(dev, stride):
+            distance = 3.0 * extent
+            cam, dirs = rays(35.0, 0.8, np.pi / 3, distance, dev, stride)
+            t0, t1 = distance - 1.8 * extent, distance + 1.8 * extent
+            ts = torch.as_tensor(np.linspace(t0, t1, samples).astype(
+                np.float32)).to(dev)
+            return vis._vv_composite(
+                torch.as_tensor(vol).to(dev), cam, dirs, ts,
+                (t1 - t0) / samples, extent, 300.0, bh, 0.012 * extent, 0.85,
+                draw_cube=True, has_bh=True)
+
+        def transfer(dev, stride):
+            distance = 2.5 * 2 * extent
+            cam, dirs = rays(45.0, 0.0, np.deg2rad(150.0), distance, dev,
+                             stride)
+            t0, t1 = distance - 1.8 * extent, distance + 1.8 * extent
+            ts = torch.as_tensor(np.linspace(t0, t1, samples).astype(
+                np.float32)).to(dev)
+            nodes = [torch.tensor(x).to(dev) for x in
+                     ((0.0, 0.2, 0.7), (0.0, 0.2, 0.3))]
+            return vis._transfer_composite(
+                torch.as_tensor(vol).to(dev), float(vol.max()), cam, dirs,
+                ts, (t1 - t0) / samples, extent, *nodes)
+
+        out[name] = {
+            '_vv_composite': compositor_check(f'_vv_composite {name}', vv,
+                                              samples, device),
+            '_transfer_composite': compositor_check(
+                f'_transfer_composite {name}', transfer, samples, device)}
+    return out
+
+
+def tutorials_phase(kernels, geos, device):
+    """The five tutorials and the last two examples of the port
+    (bhnerf_tpu_torch.tutorials, bhnerf_tpu_torch.examples.
+    recovery_animation and selfcal_known_corruption) at full width
+    (small=False: 64x64 rays, 4x128, 64 frames), in this process on the
+    card, in a temporary directory, their host tables at N_FINE and each
+    screen traced once (memo_traces, seeded with the Tutorial-3 table
+    `geos`). Fails unless tutorial 3 reaches
+    RECOVERY_MIN_PSNR through the reference's plain render, tutorial 4's
+    2000 losses are finite and fall, tutorial 5 renders tutorial 3's
+    checkpoint, recovery_animation launches the backward kernel once a
+    step of its 1000 and the forward at least as often, plus one a batch
+    of its movie render, and composites its 24 views, and the full
+    self-calibration is exact (below 1e-9); then both kernels against
+    their plain versions at recovery_animation's N in float32, and both
+    volume compositors at tutorial 5's and recovery_animation's full
+    shapes against the CPU (compositor_checks). Fills the tutorials
+    block of the JSON kernel entries and returns the phase's summary."""
+    import tempfile
+    import torch
+    from bhnerf_tpu_torch.examples import (recovery_animation,
+                                           selfcal_known_corruption)
+    from bhnerf_tpu_torch.ops import fused
+    from bhnerf_tpu_torch.tutorials import (
+        tutorial1_kerr_geodesics as t1,
+        tutorial2_synthesize_ngeht_observations as t2,
+        tutorial3_estimate_emission_image_plane as t3,
+        tutorial4_estimate_emission_eht as t4,
+        tutorial5_visualize_recovery as t5)
+
+    t_phase = time.perf_counter()
+    out, seconds = {}, {}
+    with tempfile.TemporaryDirectory() as work, memo_traces(geos) as memo:
+        def run(name, main):
+            fused.render_fwd.launches = 0
+            fused.render_bwd.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = main(work, small=False, device=device)
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            return result, (fused.render_fwd.launches,
+                            fused.render_bwd.launches)
+
+        r1, _ = run('tutorial1', t1.main)
+        log(f'tutorials tutorial 1: table {r1["shape"]}, ISCO '
+            f'{r1["isco"]:.4f} M, t {r1["t_range"][0]:.1f}..'
+            f'{r1["t_range"][1]:.1f} M, {100 * r1["captured"]:.1f}% of the '
+            f'rays captured, {seconds["tutorial1"]:.1f} s')
+        if r1['shape'] != (NUM_RAYS, NUM_RAYS, NGEO) or \
+                not np.isfinite(r1['t_range']).all() \
+                or not 0 < r1['captured'] < 1:
+            raise RuntimeError(f'tutorial 1: {r1}')
+
+        r2, _ = run('tutorial2', t2.main)
+        m = r2['mask']
+        log(f'tutorials tutorial 2: movie {r2["movie"].shape} rendered on '
+            f'the card, flux {r2["flux"][0]:.4g}..{r2["flux"][1]:.4g}; ngEHT '
+            f'observation: {r2["nscan"]} scans, {r2["n_valid"]} valid '
+            f'baselines, {seconds["tutorial2"]:.1f} s')
+        if r2['movie'].shape != (NT, NUM_RAYS, NUM_RAYS) or \
+                not np.isfinite(r2['movie']).all() or r2['n_valid'] == 0 \
+                or not np.isfinite(r2['vis'][m]).all():
+            raise RuntimeError('tutorial 2: bad movie or observation')
+
+        r3, l3 = run('tutorial3', t3.main)
+        log(f'tutorials tutorial 3: {r3["steps"]} plain steps at N = '
+            f'{r3["n"]}, final loss {r3["final_loss"]:.6g}, psnr_3d '
+            f'{r3["psnr_3d"]:.2f} dB (bar {RECOVERY_MIN_PSNR}), corr '
+            f'{r3["corr"]:.4f}; fused launches {l3}; '
+            f'{seconds["tutorial3"]:.1f} s')
+        if not r3['psnr_3d'] >= RECOVERY_MIN_PSNR or l3 != (0, 0) \
+                or r3['steps'] != 1000:
+            raise RuntimeError(f'tutorial 3: {r3["psnr_3d"]:.2f} dB, {l3}')
+
+        r5, _ = run('tutorial5', t5.main)
+        views = r5['views']
+        log(f'tutorials tutorial 5: {len(views)} views of '
+            f'{views[0][0].shape} from the {r5["source"]}, '
+            f'{seconds["tutorial5"]:.1f} s')
+        if r5['source'] != 'checkpoint' or len(views) != 3 or not all(
+                x.shape == (384, 384) and np.isfinite(x).all()
+                for layers in views for x in layers) \
+                or not min(layers[0].max() for layers in views) > 0:
+            raise RuntimeError('tutorial 5: bad render')
+
+        r4, l4 = run('tutorial4', t4.main)
+        losses = r4['losses']
+        log(f'tutorials tutorial 4: {losses.size} plain EHT steps, '
+            f'{r4["nvis"]} visibilities, loss {losses[0]:.6g} -> '
+            f'{losses[-1]:.6g}, psnr_3d {r4["psnr_3d"]:.2f} dB; fused '
+            f'launches {l4}; {seconds["tutorial4"]:.1f} s')
+        if losses.size != 2000 or not np.isfinite(losses).all() \
+                or not losses[-1] < losses[0] or l4 != (0, 0):
+            raise RuntimeError(f'tutorial 4: {losses[[0, -1]]}, {l4}')
+
+        ra, l_ra = run('recovery_animation', recovery_animation.main)
+        fit, movie = ra['launches']['fit'], ra['launches']['movie']
+        renders = -(-len(ra['t_frames']) // 8)
+        n_ra = ra['crt'].coords.shape[1]
+        log(f'tutorials recovery_animation: {ra["steps"]} fused steps in '
+            f'chunks of 100 at N = {n_ra}, final loss '
+            f'{ra["final_loss"]:.6g}; '
+            f'launches fit {fit}, movie {movie}, total {l_ra}; '
+            f'{len(ra["views"])} views of {ra["views"][0][0].shape}; '
+            f'{seconds["recovery_animation"]:.1f} s')
+        if ra['steps'] != 1000 or fit[1] != 1000 or fit[0] < 1000 \
+                or movie != (renders, 0) \
+                or l_ra != (fit[0] + movie[0], fit[1] + movie[1]) \
+                or len(ra['views']) != 24 or not all(
+                    x.shape == (256, 256) and np.isfinite(x).all()
+                    for layers in ra['views'] for x in layers) \
+                or not np.isfinite(ra['losses']).all():
+            raise RuntimeError(f'recovery_animation: launches {l_ra}, '
+                               f'{fit}, {movie}')
+
+        sc, _ = run('selfcal', selfcal_known_corruption.main)
+        errors = sc['vis_err']
+        log(f'tutorials selfcal: median |vis error| / |vis| corrupted '
+            f'{errors["corrupted"]:.6f}, D+feed calibrated '
+            f'{errors["partial"]:.6f}, fully calibrated '
+            f'{errors["calibrated"]:.3e} (< 1e-9); final losses '
+            f'{ {k: float(v[-1]) for k, v in sc["chi2"].items()} }; '
+            f'{seconds["selfcal"]:.1f} s')
+        if not errors['calibrated'] < 1e-9 or not all(
+                np.isfinite(v).all() for v in sc['chi2'].values()):
+            raise RuntimeError(f'selfcal: {errors}')
+    trace_calls, traced = memo.calls, memo.traced
+
+    checks = recovery_kernel_checks(ra['predictor'], ra['crt'],
+                                    ra['t_frames'], device,
+                                    label='recovery_animation',
+                                    dtypes=('float32',))
+    compositors = compositor_checks(
+        {'tutorial5': r5['volume'],
+         'recovery_animation': ra['volume']}, device)
+    for entry, kind, i in zip(kernels, ('fwd', 'bwd'), (0, 1)):
+        entry['tutorials'] = {'n': n_ra, 'launches': l_ra[i],
+                              'float32': checks['float32'][kind]}
+    phase_s = time.perf_counter() - t_phase
+    log(f'tutorials phase: {phase_s:.1f} s ({trace_calls} trace calls, '
+        f'{traced} new host tables at n_fine {N_FINE})')
+    return {'seconds': seconds, 'phase_s': phase_s,
+            'host_tables': traced, 'trace_calls': trace_calls,
+            'tutorial1': {k: r1[k] for k in ('isco', 'captured')},
+            'tutorial2': {'nscan': r2['nscan'], 'n_valid': r2['n_valid']},
+            'tutorial3': {k: r3[k] for k in ('psnr_3d', 'corr',
+                                             'final_loss', 'n')},
+            'tutorial4': {'loss_first': float(losses[0]),
+                          'loss_last': float(losses[-1]),
+                          'psnr_3d': r4['psnr_3d'], 'nvis': r4['nvis']},
+            'recovery_animation': {'n': n_ra, 'launches': l_ra,
+                                   'final_loss': ra['final_loss'],
+                                   'movie_loss': ra['movie_loss']},
+            'selfcal': errors, 'compositors': compositors}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3107,6 +3436,7 @@ def main():
     synthetic = synthetic_phase(kernels, geos, device)
     production = production_phase(kernels, device)
     multigpu = multigpu_phase(kernels, geos, device)
+    tutorials = tutorials_phase(kernels, geos, device)
     trace_entry['production_launches'] = production['launches_total'][
         'trace_rays']
     trace_entry['fit_chi2_df_launches'] = fit_script['chi2_device_launches']
@@ -3128,6 +3458,7 @@ def main():
     print(json.dumps({'synthetic': synthetic}), flush=True)
     print(json.dumps({'production': production}), flush=True)
     print(json.dumps({'multigpu': multigpu}), flush=True)
+    print(json.dumps({'tutorials': tutorials}), flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

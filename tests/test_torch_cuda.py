@@ -1167,3 +1167,46 @@ def test_two_gloo_ranks_on_card_match_one_process(cuda_device, tmp_path):
             'grad over ray': {'count': 1, 'largest': n_params}}
         assert min(r['launches'].values()) > 0, r['launches']
         assert r['checkpoints']['restored_step'] == 4
+
+
+def _thin_volume(n=32, seed=1):
+    """A seeded hotspot-like volume: a Gaussian blob times noise."""
+    g = np.linspace(-1, 1, n)
+    x, y, z = np.meshgrid(g, g, g, indexing='ij')
+    blob = np.exp(-((x - 0.3) ** 2 + y ** 2 + (z * 3) ** 2) / 0.05)
+    noise = np.random.default_rng(seed).random((n,) * 3)
+    return (0.05 * blob * noise).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('draw_cube,bh_radius', [(False, None), (True, 2.0)])
+def test_volume_compositors_on_card_match_cpu(cuda_device, draw_cube,
+                                              bh_radius):
+    """The two volume compositors on the card against the same calls on
+    the CPU (a seeded 32^3 volume, 64x64 pixels, 96 samples):
+    VolumeVisualizer.composite's four layers and _transfer_composite's
+    intensity and alpha, each within 2e-4 of its maximum (the bound of
+    tests/test_torch_visualization.py against the JAX package)."""
+    from bhnerf_tpu_torch import visualization as vis
+    vol = _thin_volume()
+    kw = dict(extent=8.0, azimuth=0.8, zenith=np.pi / 3, sigma_scale=300.0,
+              bh_radius=bh_radius, draw_cube=draw_cube)
+    layers = [vis.VolumeVisualizer((64, 64), fov=35.0, samples=96,
+                                   device=device).composite(vol, **kw)
+              for device in ('cpu', cuda_device)]
+    cam, dirs = vis.VolumeVisualizer((64, 64), fov=45.0, device='cpu')._rays(
+        0.0, np.deg2rad(150.0), 40.0)
+    ts = torch.linspace(11.2, 68.8, 96)
+    nodes = (torch.tensor([0.0, 0.2, 0.7]), torch.tensor([0.0, 0.2, 0.3]))
+    transfer = [[x.cpu().numpy() for x in vis._transfer_composite(
+        torch.as_tensor(vol).to(device), float(vol.max()), cam.to(device),
+        dirs.to(device), ts.to(device), 0.6, 8.0,
+        *(node.to(device) for node in nodes))]
+        for device in ('cpu', cuda_device)]
+    for cpu, card in zip(layers[0] + tuple(transfer[0]),
+                         layers[1] + tuple(transfer[1])):
+        assert card.shape == cpu.shape and np.isfinite(card).all()
+        scale = np.abs(cpu).max()
+        np.testing.assert_allclose(card, cpu, rtol=0,
+                                   atol=2e-4 * scale if scale else 0.0)
+    assert layers[0][0].max() > 0

@@ -398,7 +398,8 @@ def test_functional_mlp_matches_jax():
     jparams = j_fields.init_mlp_params(jax.random.PRNGKey(3), in_dim,
                                        net_depth=4, net_width=32)
     params = fields.init_mlp_params(torch.Generator().manual_seed(3),
-                                    in_dim, net_depth=4, net_width=32)
+                                    in_dim, net_depth=4, net_width=32,
+                                    device='cpu')
     assert params.keys() == jparams.keys()
     for k in params:
         for leaf in ('kernel', 'bias'):

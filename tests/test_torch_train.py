@@ -25,14 +25,23 @@ from bhnerf_tpu.train import make_optimizer as j_make_optimizer
 from bhnerf_tpu.train import raytracing_args as j_raytracing_args
 from bhnerf_tpu.train import step as j_step
 
-from bhnerf_tpu_torch import alma, emission, units
+from bhnerf_tpu_torch import alma, emission, units, visualization
+from bhnerf_tpu_torch.examples import (recovery_animation,
+                                       selfcal_known_corruption)
 from bhnerf_tpu_torch.geodesics.dataset import Geodesics
+from bhnerf_tpu_torch.models import fields
 from bhnerf_tpu_torch.models.fields import NeRFPredictor
 from bhnerf_tpu_torch.ops import fused
 from bhnerf_tpu_torch.train import step
 from bhnerf_tpu_torch.train.optimizer import (LogFn, Optimizer,
                                               TemporalBatchedArgs, TrainStep)
 from bhnerf_tpu_torch.train.state import TrainState, make_optimizer
+from bhnerf_tpu_torch.tutorials import (
+    tutorial1_kerr_geodesics as t1,
+    tutorial2_synthesize_ngeht_observations as t2,
+    tutorial3_estimate_emission_image_plane as t3,
+    tutorial4_estimate_emission_eht as t4,
+    tutorial5_visualize_recovery as t5)
 
 PRED_KW = dict(scale=8.0, rmin=3.0, rmax=8.0, z_width=2.0, net_depth=4,
                net_width=32, posenc_deg=3)
@@ -287,8 +296,12 @@ def test_optimizer_run_lowers_loss_on_cpu(setup):
     Optimizer.__init__, TrainStep.image, TemporalBatchedArgs.__init__,
     step.raytracing_args, NeRFPredictor.init_params,
     NeRFPredictor.params_from_jax, alma.get_raytracing_args,
-    emission.image_plane_dynamics],
-    ids=lambda f: f.__qualname__)
+    emission.image_plane_dynamics, fields.init_mlp_params,
+    visualization.VolumeVisualizer.__init__, visualization.ipyvolume_3d,
+    t1.main, t2.main, t3.main, t4.main, t5.main, recovery_animation.main,
+    selfcal_known_corruption.main],
+    ids=lambda f: f.__qualname__ if f.__qualname__ != 'main'
+    else f'{f.__module__.rsplit(".", 1)[-1]}.main')
 def test_entry_points_default_to_the_card(entry_point):
     """The port's entry points run on the card unless the caller asks for
     the CPU (as these tests do): each one's `device` defaults to 'cuda'."""
