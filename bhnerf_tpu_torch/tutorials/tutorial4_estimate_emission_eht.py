@@ -21,6 +21,8 @@ import numpy as np
 
 from bhnerf_tpu_torch.tutorials import array_path, fused_launches, pyplot
 
+NUM_ITERS = 2000        # the reference's fit steps at full size
+
 
 def main(out_dir='tutorial_outputs', small=False, operator='dense',
          device='cuda'):
@@ -42,7 +44,7 @@ def main(out_dir='tutorial_outputs', small=False, operator='dense',
     num = 16 if small else 64
     ngeo = 32 if small else 64
     nt = 8 if small else 32
-    num_iters = 200 if small else 2000
+    num_iters = 200 if small else NUM_ITERS
 
     geos = image_plane_geos(spin, inc, (-fov_M / 2, fov_M / 2),
                             (-fov_M / 2, fov_M / 2), ngeo=ngeo,

@@ -6,8 +6,8 @@ at full width, recover a synthetic hotspot from its movie in 1000 steps
 the ALMA fit script's sweep, trace geodesic tables on the card with
 the float32 tracer kernel, run equatorial lensing and the
 synthetic-flare workflow on it, run the multi-GPU support as two
-ranks sharing the one CUDA device, and run the tutorials and the last
-examples.
+ranks sharing the one CUDA device, run the tutorials and the last
+examples, and run the reference's benchmark (bhnerf_tpu_torch.bench).
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 nvcc:
@@ -58,7 +58,8 @@ Phases (any failure raises and exits non-zero):
      backward launch per step; the float32 fit checkpoints every 500
      steps, and restore_params, a resumed Optimizer and keep pruning are
      checked against it; the bfloat16 fit once more in chunks of
-     RECOVERY_SCAN_CHUNK, its first chunk under
+     RECOVERY_SCAN_CHUNK through bhnerf_tpu_torch.bench_recovery.main()
+     (its warm-up chunk first), the first chunk of its timed fit under
      torch.cuda.set_sync_debug_mode('error'), held to the same bar and
      launch counts, with steps/s and device idle share beside the
      per-step fit's; both kernels against their plain versions at the
@@ -75,7 +76,8 @@ Phases (any failure raises and exits non-zero):
      the tracer kernel (one launch an inclination), both values and both
      seconds printed; then one run resumed to FIT_RESUME_STEPS (it must
      continue from FIT_STEPS);
-  10. the EHT visibility path (bench_recovery.py --eht): the same hotspot's
+  10. the EHT visibility path: bench_recovery.main(EHT_STEPS, eht=True)
+     (bench_recovery.py --eht): the same hotspot's
      movie over the ngEHT window 4.0-15.5 UT rendered on the card and
      observed by the ngEHT array with thermal noise (observe_same), then
      TrainStep.eht('vis', dense) for EHT_STEPS bfloat16 steps at npix 64
@@ -90,18 +92,18 @@ Phases (any failure raises and exits non-zero):
   11. the float32 device tracer (trace_geodesics(backend='device'), the
      kernel of ops/csrc/geodesic_trace.cu): the kernel against its plain
      version on the card at TRACE_CHECK_RAYS^2 rays x 100 samples of spin
-     0.94 at TRACE_CHECK_N_FINE fine steps and on the ALMA ensemble's
-     inputs (the drive's gate, median |dt|, the same terminal Mino time
-     on >= 95% of the rays); the float32 tables
-     against the host float64 ones of the earlier phases (the Tutorial-3
-     table; the four ALMA tables, traced by get_raytracing_args(backend=
-     'device') in one launch from the same seed, on the same screens) and
-     in the drive (bhnerf_tpu_torch.scripts.drive_device_geos, its own
-     host table); the hotspot lightcurve from the device table within 1%
-     of the host one; 20 ALMA 'lc' steps on the device-traced ensemble;
-     the kernel's ms at 64x64 (n_fine 8192), 128x128 and the ensemble,
-     with its bound and the time of its longest ray alone, and the wall
-     seconds of the traces and of get_raytracing_args against the host's;
+     0.94 at TRACE_CHECK_N_FINE fine steps and on the ALMA ensemble's inputs
+     at its fine steps (the drive's gate, median |dt|, the same
+     terminal Mino time on >= 95% of the rays); the float32 tables against
+     the host float64 ones of the earlier phases (the Tutorial-3 table; the
+     four ALMA tables, traced by get_raytracing_args(backend='device') in
+     one launch from the same seed, on the same screens) and in the drive
+     (bhnerf_tpu_torch.scripts.drive_device_geos, its own host table, at
+     N_FINE); the hotspot lightcurve from the device table within 1% of the
+     host one; 20 ALMA 'lc' steps on the device-traced ensemble; the
+     kernel's ms at 64x64 (n_fine 8192), 128x128 and the ensemble, with its
+     bound and the time of its longest ray alone, and the wall seconds of
+     the traces and of get_raytracing_args against the host's;
   12. synthetic sources and equatorial lensing (lines starting
      `synthetic`): rho_of_req(0, 20 deg, 6 M) at the reference's sizes
      (64 azimuths, 40 bisection steps, 400 samples, n_fine 8192) on the
@@ -146,16 +148,23 @@ Phases (any failure raises and exits non-zero):
      and the examples recovery_animation and selfcal_known_corruption at
      full width in this process, their host tables at N_FINE, one a
      screen: tutorial 3's plain-path recovery held to RECOVERY_MIN_PSNR,
-     tutorial 4's 2000 EHT losses finite and falling, tutorial 5's render
+     tutorial 4's EHT losses (TUTORIAL4_STEPS of them) finite and
+     falling, tutorial 5's render
      of tutorial 3's checkpoint, recovery_animation's 1000 fused steps
      (one backward launch a step) and its 24 views, the exact
      self-calibration; both kernels against their plain versions at
      recovery_animation's N; both volume compositors at the tutorials'
      full shapes against the CPU, with their ms and peak device memory.
-The nine lines before the last are the JSON recovery, chunked-loop, EHT,
-device-trace, synthetic, production, multi-GPU and tutorials summaries
-and the JSON kernel summary; the last line is {"ok": true, "device":
-{...}}.
+  16. the benches (lines starting `bench`; bench_phase): every section of
+     bhnerf_tpu_torch.bench at full width with BENCH_REPS=1 on the
+     Tutorial-3 table, the fused launch counts set to 0 before and read
+     after (one forward and one backward a fused step), the reference's
+     keys of its line none null; both kernels against their plain versions
+     in float32 and bfloat16 at the ALMA shape's N.
+The ten lines before the last are the JSON recovery, chunked-loop, EHT,
+device-trace, synthetic, production, multi-GPU, tutorials and bench
+summaries and the JSON kernel summary; the last line is {"ok": true,
+"device": {...}}.
 """
 import concurrent.futures
 import contextlib
@@ -165,6 +174,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -222,7 +232,7 @@ EHT_STEPS = 5000
 EHT_SCAN_CHUNK = 500            # bench_recovery.py's chunks (:143-168)
 EHT_TINT = 30.0
 EHT_NPIX_PRODUCTION = 128       # the image size of the factored operator
-EHT_OPERATOR_STEPS = 200        # steps of each operator at that size
+EHT_OPERATOR_STEPS = 100        # steps of each operator at that size
 # the bar, set before the first run on the card (PERF.md): the reference
 # reached 52.5 dB and 0.215% in bfloat16 at npix 64 with the dense
 # operator (RECOVERY.json); BASELINE.md asks for < 1% lightcurve error
@@ -236,8 +246,10 @@ HBM_BYTES_PER_S = 3.35e12
 # the device tracer against its plain version (a float32 loop of torch ops
 # that launches ~450 kernels an RK4 step): TRACE_CHECK_RAYS^2 rays of the
 # drive's geometry at TRACE_CHECK_N_FINE fine steps keep that loop short
+# (its time goes with the fine steps, not the rays); the ALMA ensemble's
+# check runs at the ensemble's own fine steps, the main path's
 TRACE_CHECK_RAYS = 32
-TRACE_CHECK_N_FINE = 2048
+TRACE_CHECK_N_FINE = 1024
 # the synthetic phase: the generator's sources at its defaults, then the
 # synthetic fit's sweep at its configuration, cut to SYNTH_STEPS steps
 SYNTH_SOURCES = ('hotspot', 'tube')
@@ -253,6 +265,8 @@ SYNTH_STEPS = 500
 PROD_STEPS = 1500
 PROD_ENSEMBLE = 4
 PROD_N_FINE = 512
+# tutorial 4's plain EHT fit, cut from its 2000 steps (~32 ms each)
+TUTORIAL4_STEPS = 500
 # float32 operations of one RK4 step of the tracer (ops/csrc/
 # geodesic_trace.cu), each division counted as one: four right-hand sides
 # of 40 operations and 4 divisions, 24 stage updates, the step h/6 and
@@ -673,6 +687,18 @@ def profile_path(label, opt, train_step, crt, step_ms, steps=10,
         log(f'  {group}: {ms:.3f} ms/step = {100 * ms / busy_ms:.1f}% of '
             f'the device time')
     return busy_ms
+
+
+@contextlib.contextmanager
+def patched(obj, name, value):
+    """A context in which obj.name is value; the old value comes back on
+    exit."""
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
 
 
 @contextlib.contextmanager
@@ -1288,15 +1314,14 @@ class strict_first_chunk:
 
 
 def recovery_fit(compute_dtype, geos, hotspot, t_frames, t_injection, movie,
-                 device, checkpoint_dir='', scan_chunk=0):
+                 device, checkpoint_dir=''):
     """The recovery fit of bench_recovery.py:121-183 through the port's
     entry points: NeRFPredictor(scale 8, rmin 0, rmax 8, z_width 2)
     compacted in the 'gather' layout, TrainStep.image(dtype='full',
     fused=True), Adam at lr 1e-3 -> 1e-5 for RECOVERY_STEPS steps of batch
-    BATCH in the per-step loop, or with scan_chunk in chunks of that many
-    steps, the first of them under set_sync_debug_mode('error'); then the
-    volume PSNR on a RECOVERY_RES^3 grid and the lightcurve error of the
-    whole movie. Returns (result, optimizer, train_step, crt, launches)."""
+    BATCH in the per-step loop; then the volume PSNR on a RECOVERY_RES^3
+    grid and the lightcurve error of the whole movie. Returns (result,
+    optimizer, train_step, crt, launches)."""
     import torch
     from bhnerf_tpu_torch import utils
     from bhnerf_tpu_torch.models.fields import NeRFPredictor, sample_3d_grid
@@ -1320,15 +1345,11 @@ def recovery_fit(compute_dtype, geos, hotspot, t_frames, t_injection, movie,
     fused.render_fwd.launches = 0
     fused.render_bwd.launches = 0
     torch.cuda.synchronize()
-    with strict_first_chunk() as strict:
-        t0 = time.perf_counter()
-        opt.run(BATCH, train_step, crt, verbose=False, scan_chunk=scan_chunk)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    opt.run(BATCH, train_step, crt, verbose=False)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
     launches = (fused.render_fwd.launches, fused.render_bwd.launches)
-    if scan_chunk and strict.ran != 1:
-        raise RuntimeError(f'the chunked fit ran {strict.ran} chunks under '
-                           f'the sync check, not 1')
 
     vol = sample_3d_grid(predictor, opt.params, fov=FOV,
                          resolution=RECOVERY_RES)
@@ -1341,14 +1362,11 @@ def recovery_fit(compute_dtype, geos, hotspot, t_frames, t_injection, movie,
     result = {'psnr_3d': psnr_3d, 'lc_err_pct': lc_err_pct, 'wall_s': wall_s,
               'steps_per_s': RECOVERY_STEPS / wall_s,
               'n': crt.coords.shape[1], 'steps': opt.state.step,
-              'final_loss': float(opt.loss), 'scan_chunk': scan_chunk}
+              'final_loss': float(opt.loss), 'scan_chunk': 0}
     n_in = int((crt.t_geos_rel > -1e29).sum())
-    loop = (f'chunks of {scan_chunk}, the first under '
-            f"set_sync_debug_mode('error')" if scan_chunk
-            else 'the per-step loop')
     log(f'recovery fit, {compute_dtype}: {RECOVERY_STEPS} steps of batch '
-        f'{BATCH} in {loop} at N = {result["n"]} ({n_in} samples in the '
-        f'domain) in {wall_s:.2f} s '
+        f'{BATCH} in the per-step loop at N = {result["n"]} ({n_in} samples '
+        f'in the domain) in {wall_s:.2f} s '
         f'({result["steps_per_s"]:.2f} steps/s, checkpoints '
         f'{"every " + str(RECOVERY_SAVE_PERIOD) if checkpoint_dir else "off"}'
         f'); launches fwd {launches[0]}, bwd {launches[1]}; final loss '
@@ -1369,6 +1387,65 @@ def recovery_fit(compute_dtype, geos, hotspot, t_frames, t_injection, movie,
         raise RuntimeError(f'recovery fit ({compute_dtype}) missed the bar: '
                            f'{psnr_3d:.2f} dB, {lc_err_pct:.4f}%')
     return result, opt, train_step, crt, launches
+
+
+def bench_recovery_run(label, steps, device, eht=False):
+    """bhnerf_tpu_torch.bench_recovery.main (bench_recovery.py through the
+    port's entry point) on the Tutorial-3 table that host_precompute
+    traced, cached at N_FINE: its bfloat16 fit of `steps` steps in chunks
+    of RECOVERY_SCAN_CHUNK (its default) after its warm-up chunks, the
+    first chunk of the timed fit under set_sync_debug_mode('error'); with
+    `eht` the npix-64 ngEHT recovery with the dense operator. One forward
+    and one backward launch a step of the warm-up and of the fit, and one
+    forward a batch of 8 frames of its total_movie_loss; psnr_3d and
+    lc_err_pct against the mode's bar. Returns (result, optimizer,
+    train_step, crt, launches of the whole call)."""
+    import torch
+    from bhnerf_tpu_torch import bench, bench_recovery
+    from bhnerf_tpu_torch.ops import fused
+
+    chunk = RECOVERY_SCAN_CHUNK
+    warm = sum({min(chunk, steps), steps % chunk} - {0})
+    want = (warm + steps + -(-NT // 8), warm + steps)
+    min_psnr, max_lc = ((EHT_MIN_PSNR, EHT_MAX_LC_ERR_PCT) if eht else
+                        (RECOVERY_MIN_PSNR, RECOVERY_MAX_LC_ERR_PCT))
+    fused.render_fwd.launches = 0
+    fused.render_bwd.launches = 0
+    torch.cuda.synchronize()
+    # its table at N_FINE (bench_tables cached it), not its 8192
+    with patched(bench_recovery, 'cached_geos',
+                 lambda *args: bench.cached_geos(*args[:-1], N_FINE)), \
+            strict_first_chunk() as strict:
+        run = bench_recovery.main(steps, eht=eht, device=device)
+    launches = (fused.render_fwd.launches, fused.render_bwd.launches)
+    line, opt = run.result, run.optimizer
+    result = {'psnr_3d': line['psnr_3d'], 'lc_err_pct': line['lc_err_pct'],
+              'wall_s': line['wall_s'], 'steps_per_s': steps / line['wall_s'],
+              'n': run.crt.coords.shape[1], 'steps': opt.state.step,
+              'final_loss': float(opt.loss), 'scan_chunk': chunk,
+              'bench_recovery': line}
+    log(f'{label}: bench_recovery.main({steps}{", eht=True" if eht else ""})'
+        f' in chunks of {chunk}, the first under '
+        f"set_sync_debug_mode('error'), at N = {result['n']} in "
+        f'{line["wall_s"]:.2f} s ({result["steps_per_s"]:.2f} steps/s); '
+        f'launches fwd {launches[0]}, bwd {launches[1]} (expected {want}: '
+        f'{warm} warm-up steps, {steps} steps, the movie loss); final loss '
+        f'{result["final_loss"]:.6g}; psnr_3d {line["psnr_3d"]:.2f} dB (bar '
+        f'{min_psnr}), lc_err_pct {line["lc_err_pct"]:.4f} (bar {max_lc})')
+    if strict.ran != 1:
+        raise RuntimeError(f'{label}: {strict.ran} chunks ran under the sync '
+                           f'check, not 1')
+    if launches != want or opt.state.step != steps:
+        raise RuntimeError(f'{label}: launches {launches}, not {want}; '
+                           f'{opt.state.step} steps')
+    if run.frames.shape != run.movie.shape or \
+            not np.isfinite(run.frames).all() \
+            or tuple(run.volume.shape) != (RECOVERY_RES,) * 3:
+        raise RuntimeError(f'{label}: bad outputs {run.frames.shape}, '
+                           f'{tuple(run.volume.shape)}')
+    if not line['psnr_3d'] >= min_psnr or not line['lc_err_pct'] <= max_lc:
+        raise RuntimeError(f'{label} missed the bar: {line}')
+    return result, opt, run.train_step, run.crt, launches
 
 
 def recovery_checkpoint_checks(opt, crt, checkpoint_dir, device):
@@ -1409,12 +1486,11 @@ def recovery_phase(kernels, geos, device):
     (with checkpoints) and bfloat16: ground truth, fit, psnr_3d and
     lc_err_pct against the bar. Fills the recovery keys of the JSON kernel
     entries and returns the recovery summary."""
-    import tempfile
 
     hotspot, t_frames, t_injection, movie = recovery_target(geos, device)
-    fit = lambda compute_dtype, ckpt='', scan_chunk=0: recovery_fit(
+    fit = lambda compute_dtype, ckpt='': recovery_fit(
         compute_dtype, geos, hotspot, t_frames, t_injection, movie, device,
-        ckpt, scan_chunk)
+        ckpt)
     runs = {}
     with tempfile.TemporaryDirectory() as ckpt:
         runs['float32'] = fit('float32', ckpt)
@@ -1422,7 +1498,8 @@ def recovery_phase(kernels, geos, device):
         recovery_checkpoint_checks(opt, crt, ckpt, device)
         opt.checkpoint_dir = ''
     runs['bfloat16'] = fit('bfloat16')
-    runs['bfloat16_chunked'] = fit('bfloat16', scan_chunk=RECOVERY_SCAN_CHUNK)
+    runs['bfloat16_chunked'] = bench_recovery_run(
+        'recovery fit, bfloat16, chunked', RECOVERY_STEPS, device)
     # the fit's loop synchronises only at its end: the device's busy
     # share against that loop's step time
     idle = {}
@@ -1467,7 +1544,6 @@ def fit_script_phase(kernels, device):
     FIT_RESUME_STEPS, which must continue from FIT_STEPS. Fills the
     fit_sweep block of the JSON kernel entries and returns the phase's
     summary."""
-    import tempfile
     import torch
     from bhnerf_tpu_torch import alma, config, units
     from bhnerf_tpu_torch.geodesics import integrator
@@ -1694,78 +1770,37 @@ def eht_step(t_frames, obs, fov_rad, npix, predictor, operator, device):
                         'a_shape': list(A.shape)}
 
 
-def eht_fit(geos, hotspot, device):
+def eht_fit(device):
     """(a) bench_recovery.py --eht at npix 64 through the port's entry
-    points: the recovery predictor (rmin 0) in bfloat16, compacted in the
-    'gather' layout, TrainStep.eht('vis', fused=True, operator='dense'),
-    Adam at lr 1e-3 -> 1e-5 for EHT_STEPS steps of batch BATCH in chunks
-    of EHT_SCAN_CHUNK, as bench_recovery.py runs them; psnr_3d
-    and lc_err_pct against the bar; then both kernels against their plain
-    versions in bfloat16 at the fit's N over the EHT window. Returns
-    (result, launches)."""
+    point, bench_recovery.main(EHT_STEPS, eht=True) (bench_recovery_run):
+    the recovery predictor (rmin 0) in bfloat16, compacted in the 'gather'
+    layout, TrainStep.eht('vis', fused=True, operator='dense'), EHT_STEPS
+    steps in chunks of EHT_SCAN_CHUNK; psnr_3d and lc_err_pct against the
+    bar; what its measurements hold on the card, a profile, then both
+    kernels against their plain versions in bfloat16 at the fit's N over
+    the EHT window. Returns (result, launches)."""
     import torch
-    from bhnerf_tpu_torch import utils
-    from bhnerf_tpu_torch.models.fields import NeRFPredictor, sample_3d_grid
-    from bhnerf_tpu_torch.ops import fused
-    from bhnerf_tpu_torch.train.optimizer import Optimizer, total_movie_loss
-    from bhnerf_tpu_torch.train.step import (compact_raytracing_args,
-                                             raytracing_args)
 
-    t_frames, t_injection, movie, obs, fov_rad = eht_observation(
-        geos, hotspot, NUM_RAYS, device)
-    predictor = NeRFPredictor(scale=FOV / 2, rmin=0.0, rmax=FOV / 2,
-                              z_width=2.0, compute_dtype='bfloat16')
-    rt = raytracing_args(geos, geos.keplerian_omega(), t_injection,
-                         t_frames[0], device=device)
-    crt = compact_raytracing_args(rt, predictor, layout='gather')
-    train_step, data = eht_step(t_frames, obs, fov_rad, NUM_RAYS, predictor,
-                                'dense', device)
-    opt = Optimizer({'num_iters': EHT_STEPS, 'lr_init': 1e-3,
-                     'lr_final': 1e-5}, predictor, crt, device=device)
-    fused.render_fwd.launches = 0
-    fused.render_bwd.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    opt.run(BATCH, train_step, crt, verbose=False, scan_chunk=EHT_SCAN_CHUNK)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches = (fused.render_fwd.launches, fused.render_bwd.launches)
-
-    vol = sample_3d_grid(predictor, opt.params, fov=FOV,
-                         resolution=RECOVERY_RES)
-    psnr_3d = utils.psnr(hotspot.data, vol)
-    _, frames = total_movie_loss(8, opt.state, train_step, crt,
-                                 return_frames=True)
-    lc_rec, lc_true = frames.sum(axis=(-1, -2)), movie.sum(axis=(-1, -2))
-    lc_err_pct = float(100.0 * np.mean(np.abs(lc_rec - lc_true))
-                       / np.mean(lc_true))
-    result = {'psnr_3d': psnr_3d, 'lc_err_pct': lc_err_pct, 'wall_s': wall_s,
-              'steps_per_s': EHT_STEPS / wall_s, 'n': crt.coords.shape[1],
-              'steps': opt.state.step, 'final_loss': float(opt.loss),
-              'scan_chunk': EHT_SCAN_CHUNK, **data}
-    log(f'EHT fit, npix {NUM_RAYS}, dense, bfloat16: {EHT_STEPS} steps of '
-        f'batch {BATCH} in chunks of {EHT_SCAN_CHUNK} at N = {result["n"]} '
-        f'in {wall_s:.2f} s '
-        f'({result["steps_per_s"]:.2f} steps/s); launches fwd {launches[0]}, '
-        f'bwd {launches[1]}; final loss {result["final_loss"]:.6g}; psnr_3d '
-        f'{psnr_3d:.2f} dB (bar {EHT_MIN_PSNR}), lc_err_pct {lc_err_pct:.4f} '
-        f'(bar {EHT_MAX_LC_ERR_PCT}); the reference: 52.5 dB, 0.215% '
-        f'(bfloat16)')
-    if launches != (EHT_STEPS, EHT_STEPS):
-        raise RuntimeError(f'EHT fit launched {launches}, not one forward '
-                           f'and one backward per step')
-    if frames.shape != movie.shape or not np.isfinite(frames).all() \
-            or vol.shape != (RECOVERY_RES,) * 3:
-        raise RuntimeError(f'EHT fit: bad outputs {frames.shape}, '
-                           f'{vol.shape}')
-    if not psnr_3d >= EHT_MIN_PSNR or not lc_err_pct <= EHT_MAX_LC_ERR_PCT:
-        raise RuntimeError(f'EHT fit missed the bar: {psnr_3d:.2f} dB, '
-                           f'{lc_err_pct:.4f}%')
+    result, opt, train_step, crt, launches = bench_recovery_run(
+        f'EHT fit, npix {NUM_RAYS}, dense, bfloat16', EHT_STEPS, device,
+        eht=True)
+    _, sigma, A, _ = train_step.args[0].device_args
+    valid = torch.isfinite(sigma[:, 0]).sum(-1)
+    a_bytes = A.numel() * A.element_size()
+    log(f'EHT npix {NUM_RAYS}, dense operator: nvis per frame {A.shape[-2]} '
+        f'({int(valid.min())}-{int(valid.max())} valid); A {tuple(A.shape)} '
+        f'{A.dtype} = {a_bytes} B on the card ({a_bytes / NT / 1e6:.3f} MB a '
+        f'frame); the reference: 52.5 dB, 0.215% (bfloat16)')
+    if A.dtype != torch.float32 or not bool(torch.isfinite(A).all()):
+        raise RuntimeError('EHT operator is not finite float32')
+    result.update({'nvis': A.shape[-2], 'a_bytes': a_bytes,
+                   'a_shape': list(A.shape)})
     result['device_ms_per_step'] = profile_path(
         'EHT npix 64 dense bf16', opt, train_step, crt, 1e3 / result[
             'steps_per_s'], steps=50, scan_chunk=EHT_SCAN_CHUNK)
+    t_frames = np.asarray(train_step.args[0].args[-1], np.float32)
     result['bfloat16'] = recovery_kernel_checks(
-        predictor, crt, np.asarray(t_frames.value, np.float32), device,
+        opt.predictor, crt, t_frames, device,
         label=f'EHT npix {NUM_RAYS}', dtypes=('bfloat16',))['bfloat16']
     return result, launches
 
@@ -1899,15 +1934,14 @@ def eht_production(hotspot, device):
     return summary, checks, launches
 
 
-def eht_phase(kernels, geos, device):
+def eht_phase(kernels, device):
     """The EHT visibility path on the card: (a) the npix-64 recovery fit,
     (b) the npix-128 production operator. Fills the EHT keys of the JSON
     kernel entries and returns the EHT summary."""
     t0 = time.perf_counter()
-    hotspot = recovery_hotspot()
-    fit, fit_launches = eht_fit(geos, hotspot, device)
+    fit, fit_launches = eht_fit(device)
     t_fit = time.perf_counter() - t0
-    production, checks, launches = eht_production(hotspot, device)
+    production, checks, launches = eht_production(recovery_hotspot(), device)
     log(f'EHT phase: {time.perf_counter() - t0:.1f} s, of which the npix-64 '
         f'fit {t_fit:.1f} s')
     for i, (entry, kind) in enumerate(zip(kernels, ('fwd', 'bwd'))):
@@ -2249,7 +2283,7 @@ def device_trace_phase(t3_geos, t3_s, alma_host, eht, device):
     wall seconds against the host's. Returns the kernel's JSON entry and
     the phase's summary."""
     import torch
-    from bhnerf_tpu_torch import alma, emission, units
+    from bhnerf_tpu_torch import alma, emission, geodesics, units
     from bhnerf_tpu_torch.geodesics import image_plane_geos, integrator
     from bhnerf_tpu_torch.scripts import drive_device_geos as drive
     from bhnerf_tpu_torch.train.optimizer import TrainStep
@@ -2341,8 +2375,8 @@ def device_trace_phase(t3_geos, t3_s, alma_host, eht, device):
     beta_ens = np.stack([g.beta for g in dev['geos']])
     check = trace_kernel_check(
         f'the ALMA ensemble {ALMA_RAYS}x{NUM_RAYS}x{NUM_RAYS}', alpha_ens,
-        beta_ens, ALMA_MODEL['spin'], ALMA_MODEL['n_fine'], fov_alma, device,
-        rmax=fov_alma / 2)
+        beta_ens, ALMA_MODEL['spin'], ALMA_MODEL['n_fine'], fov_alma,
+        device, rmax=fov_alma / 2)
     entry = {'name': 'geodesic_trace', 'route': 'cuda',
              'source': 'bhnerf_tpu_torch/ops/csrc/geodesic_trace.cu',
              'replaces': 'bhnerf_tpu/geodesics/integrator.py:123-215 (XLA '
@@ -2359,7 +2393,11 @@ def device_trace_phase(t3_geos, t3_s, alma_host, eht, device):
              'ms': check['ms'], 'plain_ms': check['plain_ms'],
              'bound_ms': check['bound_ms'], 'bound_by': check['bound_by'],
              'library_ms': None, 'check': check, 'check_spin_0.94': check_094}
-    summary['drive'] = drive.drive(NUM_RAYS, device, log)
+    # the drive's tables at N_FINE, not its 8192
+    with patched(geodesics, 'image_plane_geos',
+                 lambda **kw: image_plane_geos(**kw, n_fine=N_FINE)):
+        summary['drive'] = drive.drive(NUM_RAYS, device, log)
+    summary['drive']['n_fine'] = N_FINE
     if not summary['drive']['ok']:
         raise RuntimeError('device trace: the drive fails the gate')
 
@@ -2475,7 +2513,6 @@ def synthetic_phase(kernels, t3_geos, device):
     checkpoints; (c) the chi^2 example in its small mode on the device
     tracer. Fills the synthetic block of the JSON kernel entries and
     returns the phase's summary."""
-    import tempfile
     import torch
     import yaml
     from bhnerf_tpu_torch import alma, units, utils
@@ -2728,7 +2765,6 @@ def production_phase(kernels, device):
     evaluation's ensemble, compacted as the fit compacts its ensemble.
     Fills the production block of the JSON kernel entries and returns the
     phase's summary."""
-    import tempfile
     import torch
     from bhnerf_tpu_torch.models.fields import NeRFPredictor
     from bhnerf_tpu_torch.scripts import drive_alma_production as prod
@@ -2812,7 +2848,6 @@ def multigpu_phase(kernels, geos, device):
     the ranks to its JSON entry, and the kernels' checks against their
     plain versions at the ranks' shapes (multigpu_kernel_checks)."""
     import dataclasses as dc
-    import tempfile
     from bhnerf_tpu_torch.geodesics import Geodesics, trace_geodesics
     from bhnerf_tpu_torch.scripts import drive_multigpu as drive
 
@@ -3234,18 +3269,17 @@ def tutorials_phase(kernels, geos, device):
     (small=False: 64x64 rays, 4x128, 64 frames), in this process on the
     card, in a temporary directory, their host tables at N_FINE and each
     screen traced once (memo_traces, seeded with the Tutorial-3 table
-    `geos`). Fails unless tutorial 3 reaches
-    RECOVERY_MIN_PSNR through the reference's plain render, tutorial 4's
-    2000 losses are finite and fall, tutorial 5 renders tutorial 3's
-    checkpoint, recovery_animation launches the backward kernel once a
-    step of its 1000 and the forward at least as often, plus one a batch
-    of its movie render, and composites its 24 views, and the full
-    self-calibration is exact (below 1e-9); then both kernels against
-    their plain versions at recovery_animation's N in float32, and both
-    volume compositors at tutorial 5's and recovery_animation's full
-    shapes against the CPU (compositor_checks). Fills the tutorials
-    block of the JSON kernel entries and returns the phase's summary."""
-    import tempfile
+    `geos`). Fails unless tutorial 3 reaches RECOVERY_MIN_PSNR through the
+    reference's plain render, tutorial 4's TUTORIAL4_STEPS losses are finite
+    and fall, tutorial 5 renders tutorial 3's checkpoint, recovery_animation
+    launches the backward kernel once a step of its 1000 and the forward at
+    least as often, plus one a batch of its movie render, and composites its
+    24 views, and the full self-calibration is exact (below 1e-9); then both
+    kernels against their plain versions at recovery_animation's N in
+    float32, and both volume compositors at tutorial 5's and
+    recovery_animation's full shapes against the CPU (compositor_checks).
+    Fills the tutorials block of the JSON kernel entries and returns the
+    phase's summary."""
     import torch
     from bhnerf_tpu_torch.examples import (recovery_animation,
                                            selfcal_known_corruption)
@@ -3313,13 +3347,14 @@ def tutorials_phase(kernels, geos, device):
                 or not min(layers[0].max() for layers in views) > 0:
             raise RuntimeError('tutorial 5: bad render')
 
-        r4, l4 = run('tutorial4', t4.main)
+        with patched(t4, 'NUM_ITERS', TUTORIAL4_STEPS):
+            r4, l4 = run('tutorial4', t4.main)
         losses = r4['losses']
         log(f'tutorials tutorial 4: {losses.size} plain EHT steps, '
             f'{r4["nvis"]} visibilities, loss {losses[0]:.6g} -> '
             f'{losses[-1]:.6g}, psnr_3d {r4["psnr_3d"]:.2f} dB; fused '
             f'launches {l4}; {seconds["tutorial4"]:.1f} s')
-        if losses.size != 2000 or not np.isfinite(losses).all() \
+        if losses.size != TUTORIAL4_STEPS or not np.isfinite(losses).all() \
                 or not losses[-1] < losses[0] or l4 != (0, 0):
             raise RuntimeError(f'tutorial 4: {losses[[0, -1]]}, {l4}')
 
@@ -3384,6 +3419,118 @@ def tutorials_phase(kernels, geos, device):
             'selfcal': errors, 'compositors': compositors}
 
 
+# the reference's line of bench.py (:511-541): every key is printed, none
+# null on the card
+BENCH_KEYS = (
+    'metric', 'value', 'unit', 'vs_baseline', 'steps_per_sec',
+    'steps_per_sec_median', 'steps_per_sec_spread',
+    'per_dispatch_steps_per_sec', 'scan_steps_per_sec',
+    'scan_steps_per_sec_spread', 'baseline_dense_xla_steps_per_sec',
+    'baseline_source', 'mlp_samples_per_sec', 'model_tflops', 'mfu',
+    'peak_tflops', 'chip', 'compute_dtype', 'alma_steps_per_sec',
+    'alma_steps_per_sec_spread', 'alma_ray_samples_per_sec',
+    'alma_mlp_samples_per_sec', 'alma_mfu', 'alma_num_variants',
+    'alma_shape', 'eht_steps_per_sec', 'eht_factored_steps_per_sec',
+    'eht_nvis_per_frame', 'geos_device_trace_s')
+
+
+@contextlib.contextmanager
+def bench_tables(geos):
+    """A context in which the benches' table cache and record lie in a
+    temporary directory: the Tutorial-3 table `geos` where
+    bhnerf_tpu_torch.bench (its headline table) and bench_recovery (at
+    n_fine N_FINE) look for it, and bench_recovery's RECOVERY.json. The
+    module globals come back on exit."""
+    from bhnerf_tpu_torch import bench, bench_recovery
+    with tempfile.TemporaryDirectory() as work, \
+            patched(bench, 'CACHE_DIR', work), \
+            patched(bench_recovery, 'RECOVERY_PATH',
+                    os.path.join(work, 'RECOVERY.json')):
+        for kind in ('bench', 'rec'):
+            geos.save(bench.cache_path(kind, NUM_RAYS, NGEO, FOV, N_FINE))
+        yield
+
+
+def bench_phase(kernels, device):
+    """bhnerf_tpu_torch.bench at full width with BENCH_REPS=1, on the
+    Tutorial-3 table host_precompute traced (main caches it where the
+    bench looks): every section, with the fused launch counts set to 0
+    just before and read just after (one forward and one backward launch
+    a fused step: 51 per-dispatch steps, the chunked section's warm-up
+    chunk and 1000 steps, the ALMA shape's warm-up chunk and 600 steps,
+    each EHT operator's warm-up chunk and 2 chunks; the device trace's
+    two launches; none in the plain baseline); the line's keys, none null,
+    its numbers finite; then both kernels against their plain versions in
+    float32 and bfloat16 at the ALMA shape's N (the first variant of its
+    synthetic ensemble, compacted with the other nine as the bench
+    compacts them). Fills the bench block of the JSON kernel entries and
+    returns the phase's summary."""
+    import torch
+    from bhnerf_tpu_torch import bench
+    from bhnerf_tpu_torch.geodesics import integrator
+    from bhnerf_tpu_torch.models.fields import NeRFPredictor
+    from bhnerf_tpu_torch.ops import fused
+    from bhnerf_tpu_torch.train.step import compact_ensemble_args
+
+    t_phase = time.perf_counter()
+    os.environ['BENCH_REPS'] = '1'
+    fused.render_fwd.launches = 0
+    fused.render_bwd.launches = 0
+    integrator.trace_rays.launches = 0
+    torch.cuda.synchronize()
+    try:
+        line = bench.run(device)
+        torch.cuda.synchronize()
+    finally:
+        del os.environ['BENCH_REPS']
+    launches = (fused.render_fwd.launches, fused.render_bwd.launches)
+    want = 51 + 500 * (1 + 2) + 100 * (1 + 6) + 2 * 250 * (1 + 2)
+    log(f'bench: {json.dumps(line)}')
+    log(f'bench: launches fwd {launches[0]}, bwd {launches[1]} (expected '
+        f'{want}), trace {integrator.trace_rays.launches} (expected 2)')
+    if launches != (want, want) or integrator.trace_rays.launches != 2:
+        raise RuntimeError('the bench did not go through the kernels once a '
+                           'step')
+    missing = [k for k in BENCH_KEYS if line.get(k) is None]
+    numbers = [v for k, v in line.items() if not isinstance(v, str)
+               and v is not None]
+    if missing or line.get('power_limit_w') is None or not all(
+            np.isfinite(v).all() for v in map(np.asarray, numbers)):
+        raise RuntimeError(f'bench: null keys {missing} or non-finite '
+                           f'numbers')
+
+    # the ALMA shape's kernels: the headline predictor (rmin 3), the
+    # bench's ten variants compacted together (padded to the largest), the
+    # first of them; N as the bench's line gives it (its MLP samples a
+    # step over batch 6), within its rounding of the steps/s
+    predictor = NeRFPredictor(scale=FOV / 2, rmin=3.0, rmax=FOV / 2,
+                              z_width=2.0, net_depth=4, net_width=128,
+                              posenc_deg=3)
+    crt = compact_ensemble_args(
+        [bench.synthetic_polarized_rt(128, 100, 16.0, predictor, seed=s,
+                                      device=device)
+         for s in range(line['alma_num_variants'])], predictor,
+        layout='gather')[0]
+    n = crt.coords.shape[1]
+    n_line = line['alma_mlp_samples_per_sec'] / (
+        6 * line['alma_steps_per_sec'])
+    log(f'bench ALMA shape: the check at N = {n}, the bench line\'s '
+        f'{n_line:.0f}')
+    if abs(n_line - n) > 1e-3 * n:
+        raise RuntimeError(f'bench ALMA shape: the check runs at N = {n}, '
+                           f'the bench at {n_line:.0f}')
+    checks = recovery_kernel_checks(
+        predictor, crt, np.linspace(0.0, 1.0, NT, dtype=np.float32), device,
+        label='bench ALMA shape')
+    for i, (entry, kind) in enumerate(zip(kernels, ('fwd', 'bwd'))):
+        entry['bench'] = {'n': n, 'launches': launches[i],
+                          **{dtype: c[kind] for dtype, c in checks.items()}}
+    phase_s = time.perf_counter() - t_phase
+    log(f'bench phase: {phase_s:.1f} s')
+    return {'line': line, 'launches': launches, 'alma_shape_n': n,
+            'phase_s': phase_s}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3428,15 +3575,17 @@ def main():
         predictor, crt, t_frames, device)
     profile_path('Tutorial-3', opt, train_step, crt, step_ms)
     alma_chunked, alma_host = alma_phase(kernels, device)
-    recovery = recovery_phase(kernels, geos, device)
-    fit_script = fit_script_phase(kernels, device)
-    eht = eht_phase(kernels, geos, device)
-    trace_entry, device_trace = device_trace_phase(geos, geos_s, alma_host,
-                                                   eht, device)
-    synthetic = synthetic_phase(kernels, geos, device)
-    production = production_phase(kernels, device)
-    multigpu = multigpu_phase(kernels, geos, device)
-    tutorials = tutorials_phase(kernels, geos, device)
+    with bench_tables(geos):
+        recovery = recovery_phase(kernels, geos, device)
+        fit_script = fit_script_phase(kernels, device)
+        eht = eht_phase(kernels, device)
+        trace_entry, device_trace = device_trace_phase(
+            geos, geos_s, alma_host, eht, device)
+        synthetic = synthetic_phase(kernels, geos, device)
+        production = production_phase(kernels, device)
+        multigpu = multigpu_phase(kernels, geos, device)
+        tutorials = tutorials_phase(kernels, geos, device)
+        bench_summary = bench_phase(kernels, device)
     trace_entry['production_launches'] = production['launches_total'][
         'trace_rays']
     trace_entry['fit_chi2_df_launches'] = fit_script['chi2_device_launches']
@@ -3459,6 +3608,7 @@ def main():
     print(json.dumps({'production': production}), flush=True)
     print(json.dumps({'multigpu': multigpu}), flush=True)
     print(json.dumps({'tutorials': tutorials}), flush=True)
+    print(json.dumps({'bench': bench_summary}), flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

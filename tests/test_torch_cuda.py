@@ -7,6 +7,8 @@ These tests import no JAX, so they also run where JAX is absent:
 (`--noconftest` skips tests/conftest.py, which configures JAX.) Without a
 CUDA device each test skips itself.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -1210,3 +1212,55 @@ def test_volume_compositors_on_card_match_cpu(cuda_device, draw_cube,
         np.testing.assert_allclose(card, cpu, rtol=0,
                                    atol=2e-4 * scale if scale else 0.0)
     assert layers[0][0].max() > 0
+
+
+@pytest.mark.cuda
+def test_bench_sections_on_card(cuda_device, tmp_path, monkeypatch):
+    """Each section of bhnerf_tpu_torch.bench small on the card (a 16x16
+    x32 host table cached under tmp_path, one rep): one forward and one
+    backward launch of the fused kernels a fused step (the warm-up step or
+    chunk included), none in the device trace and the plain baseline, two
+    tracer launches; the sections' keys make one JSON-able dict of
+    finite numbers, the MFU keys set for a card in PEAK_FLOPS."""
+    from bhnerf_tpu_torch import bench
+    from bhnerf_tpu_torch.geodesics import integrator
+    monkeypatch.setattr(bench, 'CACHE_DIR', str(tmp_path))
+    monkeypatch.setenv('BENCH_REPS', '1')
+    p = bench.headline_problem(cuda_device, num=16, ngeo=32, nt=16,
+                               n_fine=1024)
+    t_eht = np.linspace(4.0, 15.5, p.nt).astype(np.float32)
+    sections = {
+        'per_dispatch': (lambda: bench.bench_per_dispatch(p, n_steps=3),
+                         4),
+        'scan': (lambda: bench.bench_scan(p, chunk=4, steps=8), 12),
+        'alma_shape': (lambda: bench.bench_alma_shape(
+            p.predictor, bench.mark, num_variants=2, chunk=4,
+            device=cuda_device, num=16, ngeo=16, nt=16, steps=4), 8),
+        'eht_step': (lambda: bench.bench_eht_step(
+            p.predictor, p.geos, p.rt, p.crt, t_eht, bench.mark, chunk=4,
+            n_chunks=1, device=cuda_device), 16),
+        'device_geos': (lambda: bench.bench_device_geos(
+            bench.mark, n=8, ngeo=16, n_fine=512, device=cuda_device), 0),
+        'dense_baseline': (lambda: bench.bench_dense_baseline(
+            p, bench.mark, n_steps=2), 0)}
+    line = {}
+    for name, (run, steps) in sections.items():
+        fused.render_fwd.launches = fused.render_bwd.launches = 0
+        integrator.trace_rays.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        assert (fused.render_fwd.launches, fused.render_bwd.launches) == \
+            (steps, steps), name
+        assert integrator.trace_rays.launches == (
+            2 if name == 'device_geos' else 0), name
+        # (steps/s, loss or rates) of the timed sections: their rate
+        line.update(out if isinstance(out, dict) else
+                    {name: out[0] if isinstance(out, tuple) else out})
+    assert json.loads(json.dumps(line)) == line
+    numbers = [np.asarray(v, float) for v in line.values()
+               if v is not None]
+    assert all(np.isfinite(v).all() for v in numbers)
+    if bench.card_info(cuda_device)['chip'] in bench.PEAK_FLOPS:
+        assert line['alma_mfu'] > 0
+    assert line['eht_nvis_per_frame'] > 0 and line['alma_shape'] == \
+        [16, 16, 16, 3]

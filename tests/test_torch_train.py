@@ -25,7 +25,8 @@ from bhnerf_tpu.train import make_optimizer as j_make_optimizer
 from bhnerf_tpu.train import raytracing_args as j_raytracing_args
 from bhnerf_tpu.train import step as j_step
 
-from bhnerf_tpu_torch import alma, emission, units, visualization
+from bhnerf_tpu_torch import (alma, bench, bench_recovery, emission, units,
+                              visualization)
 from bhnerf_tpu_torch.examples import (recovery_animation,
                                        selfcal_known_corruption)
 from bhnerf_tpu_torch.geodesics.dataset import Geodesics
@@ -299,7 +300,9 @@ def test_optimizer_run_lowers_loss_on_cpu(setup):
     emission.image_plane_dynamics, fields.init_mlp_params,
     visualization.VolumeVisualizer.__init__, visualization.ipyvolume_3d,
     t1.main, t2.main, t3.main, t4.main, t5.main, recovery_animation.main,
-    selfcal_known_corruption.main],
+    selfcal_known_corruption.main, bench.headline_problem,
+    bench.synthetic_polarized_rt, bench.bench_alma_shape,
+    bench.bench_eht_step, bench.bench_device_geos, bench_recovery.main],
     ids=lambda f: f.__qualname__ if f.__qualname__ != 'main'
     else f'{f.__module__.rsplit(".", 1)[-1]}.main')
 def test_entry_points_default_to_the_card(entry_point):
