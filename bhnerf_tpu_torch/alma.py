@@ -17,7 +17,7 @@ import os
 
 import numpy as np
 
-from bhnerf_tpu_torch import constants, emission, units
+from bhnerf_tpu_torch import constants, emission, tracing, units
 from bhnerf_tpu_torch.geodesics import (Geodesics, image_plane_geos,
                                         subpixel_jittered_axes,
                                         trace_geodesics)
@@ -107,6 +107,7 @@ def image_plane_model(inc, spin, params, rot_angle=0.0,
     return _model_physics(geos, params, rot_angle)
 
 
+@tracing.traced('bhnerf.precompute.ray_constants')
 def _model_physics(geos, params, rot_angle):
     """Velocity + B-field + transport factors for an already-traced
     image plane (the non-trace half of image_plane_model). Returns

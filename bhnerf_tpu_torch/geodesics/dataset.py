@@ -17,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from bhnerf_tpu_torch import tracing
 from bhnerf_tpu_torch.geodesics import integrator, kerr
 
 
@@ -190,6 +191,7 @@ def image_plane_geos(spin, inclination, alpha_range, beta_range, ngeo=100,
                            backend=backend, mesh=mesh, device=device)
 
 
+@tracing.traced('bhnerf.precompute.geodesics')
 def trace_geodesics(alpha, beta, spin, inclination, ngeo=100, distance=1000.0,
                     E=1.0, M=1.0, tau_max=4.0, n_fine=8192, substeps=8,
                     dtype=None, backend='cpu', mesh=None,

@@ -17,6 +17,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from bhnerf_tpu_torch import tracing
+
 _CSRC = Path(__file__).parent / 'csrc'
 _BUILD_ROOT = Path(__file__).parent.parent / '_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
@@ -43,7 +45,14 @@ def build_dir(name):
 @functools.lru_cache(maxsize=None)
 def load_library(name):
     """Compile `csrc/<name>.cu` (once per source hash) and return the
-    loaded ctypes library; ptxas's report lands beside it."""
+    loaded ctypes library; ptxas's report lands beside it. Counted in
+    `tracing.counters` as `kernels.loaded` and, for each nvcc run,
+    `kernels.built`."""
+    with tracing.span('bhnerf.kernels.load'):
+        return _load(name)
+
+
+def _load(name):
     src = _CSRC / f'{name}.cu'
     out_dir = build_dir(name)
     lib_path = out_dir / f'lib{name}.so'
@@ -56,6 +65,7 @@ def load_library(name):
         try:
             proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', tmp, str(src)],
                                   capture_output=True, text=True)
+            tracing.counters.add('kernels.built')
             if proc.returncode != 0:
                 raise RuntimeError(f'nvcc failed for {src}:\n{proc.stderr}')
             (out_dir / f'{name}.ptxas.log').write_text(proc.stderr)
@@ -63,7 +73,9 @@ def load_library(name):
         finally:
             if os.path.exists(tmp):
                 os.unlink(tmp)
-    return ctypes.CDLL(str(lib_path))
+    lib = ctypes.CDLL(str(lib_path))
+    tracing.counters.add('kernels.loaded')
+    return lib
 
 
 def check(err, what):

@@ -35,8 +35,9 @@ under gloo (the CPU, and several ranks sharing one card). The reference's
 `NamedSharding`s, a type the port has no counterpart of; they are not
 ported.
 
-Every collective is counted in its mesh's `census`: how many of each
-kind over which axes, and the largest element count of each.
+Every collective is counted in its mesh's `census` (a `tracing.Census`):
+how many of each kind over which axes, and the largest element count of
+each, under the key '<kind> over <axes joined by +>'.
 """
 from __future__ import annotations
 
@@ -47,33 +48,15 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from bhnerf_tpu_torch.tracing import Census
+
 AXES = ('data', 'ray')
 # the variables torchrun sets for every rank
 _CLUSTER_ENV = ('RANK', 'WORLD_SIZE', 'MASTER_ADDR', 'MASTER_PORT')
 
 
-class Census:
-    """Counts of the collectives a mesh ran, by (kind, axes), and the
-    largest element count of each."""
-
-    def __init__(self):
-        self.counts = {}
-        self.largest = {}
-
-    def add(self, kind, axes, numel):
-        key = (kind, tuple(axes))
-        self.counts[key] = self.counts.get(key, 0) + 1
-        self.largest[key] = max(self.largest.get(key, 0), int(numel))
-
-    def reset(self):
-        self.counts.clear()
-        self.largest.clear()
-
-    def as_dict(self):
-        """{'kind over axes': {'count': n, 'largest': elements}}."""
-        return {f'{k} over {"+".join(a)}': {'count': n,
-                                            'largest': self.largest[(k, a)]}
-                for (k, a), n in sorted(self.counts.items())}
+def _census_key(kind, axes):
+    return f'{kind} over {"+".join(axes)}'
 
 
 @dataclasses.dataclass(eq=False)
@@ -122,7 +105,7 @@ class Mesh:
         axes = tuple(a for a in axes if self.shape[a] > 1)
         if not axes:
             return tensor
-        self.census.add(kind, axes, tensor.numel())
+        self.census.add(_census_key(kind, axes), tensor.numel())
         dist.all_reduce(tensor, op={'sum': dist.ReduceOp.SUM,
                                     'max': dist.ReduceOp.MAX}[op],
                         group=self._group(axes))
@@ -131,7 +114,8 @@ class Mesh:
     def broadcast(self, tensor, kind):
         """In-place broadcast of `tensor` from rank 0 to every rank."""
         if self.size > 1:
-            self.census.add(kind, self.axis_names, tensor.numel())
+            self.census.add(_census_key(kind, self.axis_names),
+                            tensor.numel())
             dist.broadcast(tensor, src=0)
         return tensor
 

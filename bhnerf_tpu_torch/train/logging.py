@@ -15,7 +15,7 @@ import time
 import numpy as np
 import torch
 
-from bhnerf_tpu_torch import utils
+from bhnerf_tpu_torch import tracing, utils
 from bhnerf_tpu_torch.models.fields import sample_3d_grid
 from bhnerf_tpu_torch.train.optimizer import _as_list, total_movie_loss
 
@@ -136,16 +136,23 @@ class MemoryWriter(_LogClosures):
 def profile_trace(logdir):
     """torch.profiler trace of the host and, where there is one, the card,
     written under `logdir` as a chrome trace when the scope ends (the
-    reference's jax.profiler trace). Yields the profiler."""
+    reference's jax.profiler trace), with the program's spans
+    (`tracing`) on for the scope: they show in the trace as
+    `user_annotation`s beside the kernels. Yields the profiler."""
     from torch.profiler import (ProfilerActivity, profile,
                                 tensorboard_trace_handler)
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities,
-                 on_trace_ready=tensorboard_trace_handler(str(logdir))) \
-            as prof:
-        yield prof
+    was_on = tracing.enable()
+    try:
+        with profile(activities=activities,
+                     on_trace_ready=tensorboard_trace_handler(str(logdir))) \
+                as prof:
+            yield prof
+    finally:
+        if not was_on:
+            tracing.disable()
 
 
 class StepTimer:

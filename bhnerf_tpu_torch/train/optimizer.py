@@ -30,7 +30,7 @@ import warnings
 import numpy as np
 import torch
 
-from bhnerf_tpu_torch import units
+from bhnerf_tpu_torch import tracing, units
 from bhnerf_tpu_torch.parallel import mesh as mesh_lib
 from bhnerf_tpu_torch.train import state as state_lib
 from bhnerf_tpu_torch.train import step as step_lib
@@ -116,6 +116,7 @@ class Optimizer:
     `save_period` steps (at the last step when save_period < 0), keeping
     the newest `keep`."""
 
+    @tracing.traced('bhnerf.setup.optimizer')
     def __init__(self, hparams, predictor, raytracing_args, save_period=-1,
                  checkpoint_dir='', keep=5, device='cuda'):
         self.step = 0
@@ -156,8 +157,9 @@ class Optimizer:
         if self.checkpoint_dir and (
                 force or self.step % self.save_period == 0
                 or self.step == self.final_step - 1):
-            state_lib.save_checkpoint(self.checkpoint_dir, self.state,
-                                      self.step, keep=self.keep)
+            with tracing.span('bhnerf.loop.checkpoint'):
+                state_lib.save_checkpoint(self.checkpoint_dir, self.state,
+                                          self.step, keep=self.keep)
 
     @property
     def params(self):
@@ -196,6 +198,16 @@ class Optimizer:
         rank has the same seed, and raises RuntimeError if not, then
         broadcasts rank 0's parameters; the loss it reports is the global
         loss, the same on every rank."""
+        try:
+            with tracing.span('bhnerf.loop.run'):
+                return self._run(batchsize, train_step, raytracing_args,
+                                 log_fns, verbose, nan_check_period,
+                                 scan_chunk)
+        finally:
+            tracing.at_step(None)
+
+    def _run(self, batchsize, train_step, raytracing_args, log_fns, verbose,
+             nan_check_period, scan_chunk):
         mesh = _mesh_of(train_step, raytracing_args)
         if mesh is not None:
             mesh_lib.check_same_seed(self.seed, mesh)
@@ -225,28 +237,40 @@ class Optimizer:
         try:
             with _GracefulShutdown() as shutdown:
                 for self.step in range(self.init_step, self.final_step):
-                    self._step(batchsize, train_step, raytracing_args,
-                               num_variants)
-                    if (nan_check_period
-                            and self.step % nan_check_period == 0
-                            and not torch.isfinite(self.loss).all()):
-                        warnings.warn(f'non-finite loss at step {self.step}; '
-                                      f'stopping (the last checkpoint is '
-                                      f'recoverable)')
-                        return
-                    self.log()
-                    self.save_checkpoint()
-                    if shutdown.requested:
-                        # preemption: persist this step and end the run;
-                        # a new Optimizer on checkpoint_dir resumes it
-                        self.save_checkpoint(force=True)
-                        return
-                    if verbose and \
-                            (self.step - self.init_step + 1) % report == 0:
-                        print(f'iteration {self.step}: loss '
-                              f'{float(self.loss):.6g}', flush=True)
+                    tracing.at_step(self.step)
+                    with tracing.span('bhnerf.loop.step'):
+                        self._step(batchsize, train_step, raytracing_args,
+                                   num_variants)
+                        if (nan_check_period
+                                and self.step % nan_check_period == 0
+                                and not self._finite('nan_check')):
+                            warnings.warn(f'non-finite loss at step '
+                                          f'{self.step}; stopping (the last '
+                                          f'checkpoint is recoverable)')
+                            return
+                        with tracing.span('bhnerf.loop.callbacks'):
+                            self.log()
+                        self.save_checkpoint()
+                        if shutdown.requested:
+                            # preemption: persist this step and end the
+                            # run; a new Optimizer on checkpoint_dir
+                            # resumes it
+                            self.save_checkpoint(force=True)
+                            return
+                        if verbose and \
+                                (self.step - self.init_step + 1) % report == 0:
+                            tracing.counters.add('host_syncs.report')
+                            print(f'iteration {self.step}: loss '
+                                  f'{float(self.loss):.6g}', flush=True)
         except KeyboardInterrupt:
             return
+
+    def _finite(self, site):
+        """Whether the last loss is finite: the non-finite guard, which
+        waits for the card (counted as `host_syncs.<site>`)."""
+        with tracing.span('bhnerf.loop.guard'):
+            tracing.counters.add(f'host_syncs.{site}')
+            return bool(torch.isfinite(self.loss).all())
 
     def _draw(self, batchsize, train_step, num_variants):
         """One step's frame batch and variant from the generator."""
@@ -259,7 +283,16 @@ class Optimizer:
     def _step(self, batchsize, train_step, raytracing_args, num_variants):
         """One gradient step on a frame batch (and, for an ensemble, a
         variant) drawn from the generator."""
-        batch, self.variant = self._draw(batchsize, train_step, num_variants)
+        with tracing.span('bhnerf.loop.draw'):
+            batch, self.variant = self._draw(batchsize, train_step,
+                                             num_variants)
+        with tracing.span('bhnerf.loop.upload'):
+            # a copy from pageable memory: on the card it waits for the
+            # stream (counted whatever the device)
+            tracing.counters.add('host_syncs.index_copy')
+            tracing.counters.add('h2d.index_copy',
+                                 batch.numel() * batch.element_size())
+            batch = batch.to(train_step.args[0].device_args[0].device)
         self.loss, self.state, _ = train_step(
             self.state, raytracing_args, indices=batch, variant=self.variant)
 
@@ -297,10 +330,13 @@ class Optimizer:
     def _upload_indices(self, batches, device):
         """A chunk's (chunk, batchsize) frame indices on `device`: one
         copy, from pinned memory on the card, that does not block."""
-        idx = torch.stack(batches).to(torch.int64)
-        if device.type != 'cuda':
-            return idx.to(device)
-        return idx.pin_memory().to(device, non_blocking=True)
+        with tracing.span('bhnerf.loop.upload'):
+            idx = torch.stack(batches).to(torch.int64)
+            tracing.counters.add('h2d.chunk_upload',
+                                 idx.numel() * idx.element_size())
+            if device.type != 'cuda':
+                return idx.to(device)
+            return idx.pin_memory().to(device, non_blocking=True)
 
     def _chunk(self, train_step, rt_list, indices, variants):
         """One chunk: a gradient step of `train_step` on each row of the
@@ -324,34 +360,40 @@ class Optimizer:
         while step < self.final_step - 1:
             chunk = min(scan_chunk, self.final_step - 1 - step,
                         next_boundary(step) - step)
-            draws = [self._draw(batchsize, train_step, num_variants)
-                     for _ in range(chunk)]
-            indices = self._upload_indices([b for b, _ in draws], device)
-            variants = [v for _, v in draws]
-            losses = self._chunk(train_step, rt_list, indices, variants)
+            tracing.at_step(step + 1)
+            with tracing.span('bhnerf.loop.chunk'):
+                with tracing.span('bhnerf.loop.draw'):
+                    draws = [self._draw(batchsize, train_step, num_variants)
+                             for _ in range(chunk)]
+                indices = self._upload_indices([b for b, _ in draws], device)
+                variants = [v for _, v in draws]
+                losses = self._chunk(train_step, rt_list, indices, variants)
             step += chunk
             self.step, self.loss, self.variant = step, losses[-1], \
                 variants[-1]
-            if not torch.isfinite(self.loss).all():
+            if not self._finite('guard'):
                 warnings.warn(f'non-finite loss at step {self.step}; '
                               f'stopping (the last checkpoint is '
                               f'recoverable)')
                 return
-            if per_step_fns:
-                for i, loss in enumerate(losses.cpu()):
-                    self.step, self.loss = step - chunk + i + 1, loss
-                    self.variant = variants[i]
-                    for f in per_step_fns:
-                        f(self)
-                self.step, self.loss = step, losses[-1]
-            for f in chunk_fns:
-                f(self)
+            with tracing.span('bhnerf.loop.callbacks'):
+                if per_step_fns:
+                    tracing.counters.add('host_syncs.replay')
+                    for i, loss in enumerate(losses.cpu()):
+                        self.step, self.loss = step - chunk + i + 1, loss
+                        self.variant = variants[i]
+                        for f in per_step_fns:
+                            f(self)
+                    self.step, self.loss = step, losses[-1]
+                for f in chunk_fns:
+                    f(self)
             self.save_checkpoint()
             if shutdown.requested:
                 self.save_checkpoint(force=True)
                 return
             if verbose and (step - self.init_step + 1) // report > \
                     (step - chunk - self.init_step + 1) // report:
+                tracing.counters.add('host_syncs.report')
                 print(f'iteration {step}: loss {float(self.loss):.6g}',
                       flush=True)
 
@@ -458,6 +500,7 @@ class TrainStep:
                          self.scale + other.scale, scan_meta=metas)
 
     @classmethod
+    @tracing.traced('bhnerf.setup.train_step')
     def image(cls, t_frames, target, predictor, sigma=1.0, offset=0.0,
               scale=1.0, dtype='full', mesh=None, fused=False, tv_scale=0.0,
               tv_fov=None, tv_resolution=32, device='cuda'):
@@ -484,6 +527,7 @@ class TrainStep:
         return cls(dtype, args, grad_fn, test_fn, scale, scan_meta=meta)
 
     @classmethod
+    @tracing.traced('bhnerf.setup.train_step')
     def eht(cls, t_frames, obs, image_fov, image_size, predictor,
             chisqdata=None, dtype='vis', pol='I', scale=1.0, mesh=None,
             fused=False, operator='dense', device='cuda'):

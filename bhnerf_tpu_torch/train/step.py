@@ -51,6 +51,7 @@ import torch
 
 from bhnerf_tpu_torch import constants as consts
 from bhnerf_tpu_torch import emission as emission_lib
+from bhnerf_tpu_torch import tracing
 from bhnerf_tpu_torch import units, utils
 from bhnerf_tpu_torch.models.fields import learned_t_injection
 from bhnerf_tpu_torch.ops import fused as fused_lib
@@ -94,6 +95,7 @@ def _ndim(J):
     return J.ndim if isinstance(J, torch.Tensor) else np.ndim(J)
 
 
+@tracing.traced('bhnerf.precompute.ray_constants')
 def raytracing_args(geos, Omega, t_injection, t_start_obs, J=1.0,
                     M=consts.sgra_mass, device='cuda', dtype=torch.float32):
     """Freeze geodesics into tensors on `device`
@@ -216,6 +218,7 @@ def _pad_grouped(red_gather, red_weights, red_group_ids, valid_slot,
     return red_gather, red_weights, red_group_ids, valid_slot
 
 
+@tracing.traced('bhnerf.precompute.compaction')
 def compact_raytracing_args(rt: RayTracingArgs, predictor, tile=None,
                             mesh=None, shards=None, shard_axis='ray',
                             pad_local_n=None, pad_groups=None,
@@ -990,18 +993,24 @@ def make_step_fns(predictor, kind='image', dtype='full', fused=False,
         on, axes = _partial_axes(rt, mesh)
         if 'data' in axes:
             indices = mesh_lib.batch_share(indices, on)
-        state.zero_grad()
-        loss, tv, [images] = compute_batch_loss(
-            state.params, target, sigma, third, t_frames, indices, rt, scale)
+        with tracing.span('bhnerf.step.zero_grad'):
+            state.zero_grad()
+        with tracing.span('bhnerf.step.forward'):
+            loss, tv, [images] = compute_batch_loss(
+                state.params, target, sigma, third, t_frames, indices, rt,
+                scale)
         # the tv gradient counts once across the ranks summed below
         first = on is None or all(on.coords[a] == 0 for a in axes)
-        (loss if tv is None or not first else loss + tv).backward()
+        with tracing.span('bhnerf.step.backward'):
+            (loss if tv is None or not first else loss + tv).backward()
         loss = loss.detach()
         if axes:
-            mesh_lib.all_reduce_gradients(state.params, on, axes)
-            if 'data' in axes:
-                on.all_reduce(loss, ('data',), 'loss')
-        state.apply_gradients()
+            with tracing.span('bhnerf.step.allreduce'):
+                mesh_lib.all_reduce_gradients(state.params, on, axes)
+                if 'data' in axes:
+                    on.all_reduce(loss, ('data',), 'loss')
+        with tracing.span('bhnerf.step.update'):
+            state.apply_gradients()
         if tv is not None:
             loss = loss + tv.detach()
         return loss, state, images.detach()

@@ -687,6 +687,112 @@ def test_chunked_run_matches_per_step_run_on_card(cuda_device):
                                [l for _, l in series[0]], rtol=1e-5)
 
 
+@pytest.fixture
+def spans_on():
+    """The program's spans on for the test, off and emptied after it."""
+    from bhnerf_tpu_torch import tracing
+    tracing.records()
+    tracing.enable()
+    yield tracing
+    tracing.disable()
+    tracing.records()
+
+
+@pytest.mark.cuda
+def test_spans_share_the_profilers_clock_on_card(cuda_device, spans_on,
+                                                 tmp_path):
+    """Under torch.profiler a `bhnerf.step.forward` span is a
+    user_annotation of the exported trace that holds the runtime call
+    launching `fused_render_fwd_kernel` (matched by the trace's
+    correlation id), and the kernel starts after the span starts: the
+    spans and the kernels share one clock."""
+    from torch.profiler import ProfilerActivity, profile
+    from bhnerf_tpu_torch.train.optimizer import Optimizer
+    pred, crt, train_step = _tutorial3_fit(cuda_device)
+    opt = Optimizer({'num_iters': 3, 'seed': 2}, pred, crt,
+                    device=cuda_device)
+    opt.run(4, train_step, crt, verbose=False)            # warm
+    opt.num_iters = 2
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        opt.run(4, train_step, crt, verbose=False)
+        torch.cuda.synchronize()
+    path = tmp_path / 'trace.json'
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())['traceEvents']
+              if e.get('ph') == 'X']
+    forward = [e for e in events if e.get('cat') == 'user_annotation'
+               and e['name'] == 'bhnerf.step.forward']
+    kernels = [e for e in events if e.get('cat') == 'kernel'
+               and 'fused_render_fwd_kernel' in e['name']]
+    assert len(forward) == 2 and len(kernels) == 2
+    launches = {e['args']['correlation']: e for e in events
+                if e.get('cat') in ('cuda_runtime', 'cuda_driver')
+                and 'correlation' in e.get('args', {})}
+    for k in kernels:
+        launch = launches[k['args']['correlation']]
+        [span] = [f for f in forward if f['ts'] <= launch['ts']
+                  and launch['ts'] + launch['dur'] <= f['ts'] + f['dur']]
+        assert k['ts'] >= span['ts']
+
+
+@pytest.mark.cuda
+def test_host_syncs_count_torchs_synchronisations_on_card(cuda_device):
+    """Over 20 steps of the per-step loop (the non-finite guard every 10),
+    torch.cuda.set_sync_debug_mode('warn') warns once for each
+    synchronisation that `tracing.counters` counts under `host_syncs`:
+    22, one index copy a step and two guards."""
+    import warnings
+    from bhnerf_tpu_torch import tracing
+    from bhnerf_tpu_torch.train.optimizer import Optimizer
+    pred, crt, train_step = _tutorial3_fit(cuda_device)
+    opt = Optimizer({'num_iters': 2, 'seed': 2}, pred, crt,
+                    device=cuda_device)
+    opt.run(4, train_step, crt, verbose=False)            # warm
+    opt.num_iters = 20
+    syncs = lambda: sum(n for k, n in tracing.counters.counts.items()
+                        if k.startswith('host_syncs.'))
+    before = syncs()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            opt.run(4, train_step, crt, verbose=False, nan_check_period=10)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    warned = [w for w in caught if 'synchroniz' in str(w.message)]
+    assert syncs() - before == 22 == len(warned), \
+        [str(w.message)[:80] for w in warned[:3]]
+
+
+@pytest.mark.cuda
+def test_chunk_dispatch_with_spans_on_does_not_synchronise_on_card(
+        cuda_device, spans_on):
+    """A chunk's draws, its pinned upload and its 8 steps' launches, as
+    the chunked loop dispatches them, with spans on, raise nothing under
+    torch.cuda.set_sync_debug_mode('error'); the spans recorded them."""
+    from bhnerf_tpu_torch.train.optimizer import Optimizer
+    pred, crt, train_step = _tutorial3_fit(cuda_device)
+    opt = Optimizer({'num_iters': 20, 'seed': 2}, pred, crt,
+                    device=cuda_device)
+    opt.run(4, train_step, crt, verbose=False, scan_chunk=4)     # warm
+    spans_on.records()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        with spans_on.span('bhnerf.loop.draw'):
+            draws = [opt._draw(4, train_step, 1) for _ in range(8)]
+        indices = opt._upload_indices([b for b, _ in draws], cuda_device)
+        losses = opt._chunk(train_step, [crt], indices, [0] * 8)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(losses).all())
+    names = [r.name for r in spans_on.records()]
+    assert names.count('bhnerf.step.forward') == 8
+    assert names.count('bhnerf.loop.upload') == 1
+
+
 def _trace_inputs(device, npix=8, variants=1, spin=0.94, fov=16.0):
     """initial_state of the float32 trace (inclination 60 deg) over
     `variants` jittered npix x npix screens of one seed, on `device`."""
