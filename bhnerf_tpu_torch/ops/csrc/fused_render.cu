@@ -14,15 +14,17 @@
 // concatenated after layer net_depth//2, a one-wide head), sigmoid(x - 10)
 // and the validity/domain mask. Layouts follow the PyTorch wrapper
 // (bhnerf_tpu_torch/ops/fused.py): per-sample rows (N,), emission (nt, N),
-// the stashed features F (feat, nt*N) with column t*N + n. Weights arrive
-// as nn.Linear's (out, in) matrices with `in` zero-padded to a multiple of
-// 16 (the feature rows F to FP = roundup16(feat)), packed layer after
-// layer; gradients come back in the same padded layout followed by the
-// biases.
+// the stashed features F (feat, nt*N) and hidden activations (depth,
+// width, nt*N), each with column t*N + n. Weights arrive as nn.Linear's
+// (out, in) matrices with `in` zero-padded to a multiple of 16 (the
+// feature rows F to FP = roundup16(feat)), packed layer after layer;
+// gradients come back in the same padded layout followed by the biases.
 //
-// What bounds them on this card: the matmul chain. Device-memory traffic
-// is small by design: activations never leave shared memory, and a
-// column reads 5 floats and writes 1 (plus feat floats of stash).
+// What bounds them on this card: the matmul chain. A column reads 5
+// floats and writes 1; in a training step the forward also stashes, for
+// the backward, the features (feat floats a column) and every hidden
+// activation (depth x width floats, 2 KB at 4x128), and the backward reads
+// both once.
 //
 // Forward: ~109 kFLOP per column, 134 GFLOP of TF32 per training step in
 // f32 mode: 0.27 ms at 495 TFLOP/s against 3.5 MB of device-memory
@@ -30,13 +32,16 @@
 // tile stays in shared memory; the products are mma.sync m16n8k8 TF32 on
 // register fragments, a 32 x 32 unit per warp, with the weights staged
 // through shared memory ahead of use (see the forward section below).
+// The activation stash is stored from the accumulator registers in the
+// pass that writes shared memory: 840 MB at the training step's 410,112
+// columns, 0.25 ms of the card's 3.35 TB/s beside 0.27 ms of products.
 //
-// Backward: ~323 kFLOP per column (recompute 109k, weight gradients
-// 109k, products back through the weights 104k; 4x128, 21 features).
-// At the training step's 410,112 columns that is 132 GFLOP, 397 GFLOP of
-// TF32 in f32 mode (3 products each): 0.80 ms at 495 TFLOP/s, against
-// ~90 MB of device-memory traffic (0.03 ms). So it is compute-bound, and
-// the design serves the tensor cores:
+// Backward from the stash: ~214 kFLOP per column (weight gradients 109k,
+// products back through the weights 104k; 4x128, 21 features). At the
+// training step's 410,112 columns that is 88 GFLOP, 263 GFLOP of TF32 in
+// f32 mode (3 products each): 0.53 ms at 495 TFLOP/s, against ~970 MB of
+// device-memory traffic (0.29 ms; the stash 840 MB of it, read once). So
+// it is compute-bound, and the design serves the tensor cores:
 //   * every product is mma.sync m16n8k8 TF32 on register fragments whose
 //     layout the PTX ISA fixes, so operands are handled per element;
 //   * a warp computes a unit of 2 x 2 output tiles (32 x 16), so each A
@@ -53,7 +58,19 @@
 //     head gradients) and a block reduction (the frame-time cotangent).
 // It keeps every hidden activation of its tile (4 x 128 rows) plus the
 // cotangents, ~200 KB of shared memory, and re-reads and re-writes its
-// gradient partial (221 KB, L2-resident) once per tile.
+// gradient partial (221 KB, L2-resident) once per tile. A tile's
+// activations arrive from the stash as 16-byte cp.async copies (131 KB,
+// issued with the feature load) under an evict-first L2 policy, so the
+// stream does not push the partials out of L2.
+//
+// The TPU kernel kept only F and the emission for its backward and
+// recomputed the four hidden layers per tile (another 109 kFLOP a column,
+// the forward's products again, here with each weight read from L2 twice
+// per 64 columns), trading work for a TPU core's memory. This card has
+// 80 GB at 3.35 TB/s, so the wrapper stashes whenever the activations fit
+// in a fixed eighth of the card's memory (every training shape of the
+// port, up to 5.2 GB), and only above that passes a null stash, which
+// makes this kernel recompute them as the TPU's did.
 //
 // f32 mode splits each operand into TF32 hi + lo parts and sums lo*hi +
 // hi*lo + hi*hi ("3xTF32", error ~2^-21 relative per product); in bf16
@@ -253,8 +270,9 @@ __device__ __forceinline__ int n_units(int M, int N) {
 // block, the clock cycles thread 0 sees between the points that close each
 // phase of a tile. Forward: 0 prologue, 1 waiting for a weight chunk,
 // 2 products, 3 bias/ReLU stores and the layer's barrier, 4 head.
-// Backward: 0 feature load, 1 recompute, 2 head, 3 masks and bias sums,
-// 4 weight gradients and products back, 5 frame-time cotangent.
+// Backward: 0 feature load, 1 recompute (or the wait for the stash),
+// 2 head, 3 masks and bias sums, 4 weight gradients and products back,
+// 5 frame-time cotangent.
 constexpr int MAX_TIMED_BLOCKS = 1024;
 #define PHASE_STAMP(k)                      \
   if (tid == 0) {                           \
@@ -333,6 +351,22 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
+// A 16-byte cp.async of data read once: first to go from L2, so it does
+// not push out what the block reads again (the gradient partials).
+__device__ __forceinline__ void cp_async16_once(float* dst, const float* src,
+                                                uint64_t policy) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;"
+               :: "r"(d), "l"(src), "l"(policy) : "memory");
+}
+
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+               : "=l"(p));
+  return p;
+}
+
 template <int PENDING>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" :: "n"(PENDING) : "memory");
@@ -375,8 +409,8 @@ fused_render_fwd_kernel(const float* __restrict__ t_eff,
                         const float* __restrict__ wf,
                         const float* __restrict__ bias,
                         float* __restrict__ em, float* __restrict__ fstash,
-                        int nt, int N, float inv_scale, int deg, int kc_max,
-                        Net net) {
+                        float* __restrict__ h_store, int nt, int N,
+                        float inv_scale, int deg, int kc_max, Net net) {
   constexpr bool SPLIT = !BF16;
   extern __shared__ __align__(128) float smem[];
   const int W = net.width, Fd = net.feat, FP = net.feat_pad, D = net.depth;
@@ -527,8 +561,15 @@ fused_render_fwd_kernel(const float* __restrict__ t_eff,
           FWD_PHASE(2);
         }
         // acc[m][n] = rows g, g + 8 of m-tile m at tile columns
-        // c0 + 8 q + n and c0 + 8 q + 4 + n
+        // c0 + 8 q + n and c0 + 8 q + 4 + n. With h_store the same values
+        // also go to the activation stash from these registers: a lane's
+        // float4 is four adjacent columns, so the warp's two stores of a
+        // row fill 128 contiguous bytes. The 32-column units past the end
+        // of a short last tile store nothing.
         float* out = act(i);
+        const size_t hcol = (size_t)tile * FWD_BN + c0;
+        float* hs = h_store != nullptr && hcol < cols
+            ? h_store + (size_t)i * W * cols + hcol + 8 * q : nullptr;
 #pragma unroll
         for (int m = 0; m < FWD_MT; ++m) {
           const int r = 16 * (FWD_MT * mu + m) + g;
@@ -545,6 +586,9 @@ fused_render_fwd_kernel(const float* __restrict__ t_eff,
               v.w = rnd(fmaxf(acc[m][3][2 * h + e] + b, 0.f), BF16);
               *reinterpret_cast<float4*>(out + (r + 8 * h) * FWD_LD + c0 +
                                          8 * q + 4 * e) = v;
+              if (hs != nullptr)
+                __stcs(reinterpret_cast<float4*>(
+                           hs + (size_t)(r + 8 * h) * cols + 4 * e), v);
             }
           }
         }
@@ -797,6 +841,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
 fused_render_bwd_kernel(const float* __restrict__ g_em,
                         const float* __restrict__ em,
                         const float* __restrict__ fstash,
+                        const float* __restrict__ h_store,
                         const float* __restrict__ omega,
                         const float* __restrict__ w,
                         const float* __restrict__ bias,
@@ -826,6 +871,7 @@ fused_render_bwd_kernel(const float* __restrict__ g_em,
   const size_t cols = (size_t)nt * N;
   float* part = partial + (size_t)blockIdx.x * stride;
   float* dbp = part + net.n_weights;
+  const uint64_t policy = evict_first_policy();
   for (int idx = tid; idx < n_gacc; idx += BWD_THREADS) gacc[idx] = 0.f;
   // thread 0's frame-time sum of the current frame: a block's tiles run
   // in frame order, so each frame is written to dt_partial once
@@ -840,6 +886,20 @@ fused_render_bwd_kernel(const float* __restrict__ g_em,
     const int n0 = (tile % n_stiles) * BN;
     const size_t col0 = (size_t)t * N + n0;
 
+    // the forward's stashed activations, when it kept them: D x W rows of
+    // 64 columns, 16-byte copies into the rows the recompute would fill,
+    // in flight while the features load. They are read once, so they go
+    // first from L2 and leave it to the gradient partials, which every
+    // tile reads and writes again (with L2's default policy the stash
+    // pushed them out and the weight gradients ran 10-50% slower)
+    if (h_store != nullptr) {
+      for (int idx = tid; idx < D * W * (BN / 4); idx += BWD_THREADS) {
+        const int row = idx / (BN / 4), c = 4 * (idx % (BN / 4));
+        cp_async16_once(acts + row * LD + c,
+                        h_store + (size_t)row * cols + col0 + c, policy);
+      }
+      cp_async_commit();
+    }
     // stashed features (already in the compute dtype, padding rows 0)
     // and the head cotangent d_out = g * em * (1 - em)
     for (int idx = tid; idx < FP * BN; idx += BWD_THREADS) {
@@ -854,13 +914,19 @@ fused_render_bwd_kernel(const float* __restrict__ g_em,
     __syncthreads();
     BWD_PHASE(0);
 
-    // recompute the hidden activations
-    for (int i = 0; i < D; ++i) {
-      recompute_layer<SPLIT>(w + net.w_off[i], net.in_pad[i], W,
-                             layer_input(net, i, acts, Fs),
-                             bias + net.b_off[i], acts + i * W * LD, BF16);
+    // the hidden activations: the stash landed, or recompute them
+    if (h_store != nullptr) {
+      cp_async_wait<0>();
       __syncthreads();
       BWD_PHASE(1);
+    } else {
+      for (int i = 0; i < D; ++i) {
+        recompute_layer<SPLIT>(w + net.w_off[i], net.in_pad[i], W,
+                               layer_input(net, i, acts, Fs),
+                               bias + net.b_off[i], acts + i * W * LD, BF16);
+        __syncthreads();
+        BWD_PHASE(1);
+      }
     }
 
     // head: dW_D and db_D as warp sums over the columns, d_h = W_D^T d_out
@@ -1136,12 +1202,15 @@ int fused_render_fwd_occupancy(int depth, int width, int feat, int do_skip,
       blocks, kernel, FWD_THREADS, plan.smem);
 }
 
+// fstash (feat, nt * N) and h_store (depth, width, nt * N), column
+// t * N + n, may each be null: the forward then writes no features or no
+// activations.
 int fused_render_fwd(const float* t_eff, const float* coords,
                      const float* omega, const float* tg, const float* smask,
                      const float* w, const float* bias, float* wf, float* em,
-                     float* fstash, int nt, int N, int depth, int width,
-                     int feat, int do_skip, int deg, float inv_scale,
-                     int bf16, void* stream) {
+                     float* fstash, float* h_store, int nt, int N, int depth,
+                     int width, int feat, int do_skip, int deg,
+                     float inv_scale, int bf16, void* stream) {
   if (!supported(depth, width) || N % BN != 0)
     return (int)cudaErrorInvalidValue;
   Net net = make_net(depth, width, feat, do_skip, bf16);
@@ -1161,14 +1230,17 @@ int fused_render_fwd(const float* t_eff, const float* coords,
   const long long tiles = ((long long)nt * N + FWD_BN - 1) / FWD_BN;
   kernel<<<(int)(tiles < plan.sms ? tiles : plan.sms), FWD_THREADS,
            plan.smem, s>>>(t_eff, coords, omega, tg, smask, w, wf, bias, em,
-                           fstash, nt, N, inv_scale, deg, plan.kc, net);
+                           fstash, h_store, nt, N, inv_scale, deg, plan.kc,
+                           net);
   return (int)cudaGetLastError();
 }
 
 // partial: (grid, stride) floats, zeroed, stride >= n_params and a
-// multiple of 8 (aligned rows for the 8-byte loads and stores).
+// multiple of 8 (aligned rows for the 8-byte loads and stores). h_store:
+// the forward's activation stash, or null to recompute the activations.
 int fused_render_bwd(const float* g_em, const float* em, const float* fstash,
-                     const float* omega, const float* w, const float* bias,
+                     const float* h_store, const float* omega,
+                     const float* w, const float* bias,
                      float* partial, int stride, float* dt_partial,
                      float* grads, float* d_t, int nt, int N, int depth,
                      int width, int feat, int do_skip, int deg, int bf16,
@@ -1186,8 +1258,8 @@ int fused_render_bwd(const float* g_em, const float* em, const float* fstash,
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   kernel<<<grid, BWD_THREADS, smem, s>>>(
-      g_em, em, fstash, omega, w, bias, partial, stride, dt_partial, nt, N,
-      deg, want_dt, net);
+      g_em, em, fstash, h_store, omega, w, bias, partial, stride,
+      dt_partial, nt, N, deg, want_dt, net);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   fused_render_reduce_kernel<<<(n_params + 255) / 256, 256, 0, s>>>(

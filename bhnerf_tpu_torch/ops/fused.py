@@ -8,17 +8,22 @@ whole chain per tile of columns in shared memory, so the (columns, 128)
 activations never round-trip through device memory:
 
 * `render_fwd` replaces `_fwd_kernel` (reference fused.py:169) and, with
-  `stash=True`, also writes the encoded features F for the backward;
+  `stash=True`, also writes for the backward the encoded features F and,
+  while they fit `ACT_STASH_SHARE` of the card's memory, the hidden
+  activations H;
 * `render_bwd` replaces `_bwd_kernel` (reference fused.py:198): parameter
-  gradients from the stashed (F, em), and with `want_dt` the per-frame
+  gradients from the stashed (F, em), read from H where the forward kept
+  it and recomputed from F otherwise, and with `want_dt` the per-frame
   t_eff cotangent that carries the learnable injection time.
 
 Each wrapper runs its kernel for CUDA tensors (and raises if it cannot)
 and its plain PyTorch version, the same math in the same order of
 operations, for CPU tensors. `launches` on each wrapper counts kernel
-launches. Layouts: coords (3, N), omega/tg/smask (1, N), t_eff (nt, 1),
-emission (nt, N), F (feat, nt * N) with column t * N + n, weights as
-nn.Linear's (out, in) with biases (out,).
+launches; `tracing.counters` counts each backward launch as
+`render_bwd.from_stash` or `render_bwd.recomputed`. Layouts: coords
+(3, N), omega/tg/smask (1, N), t_eff (nt, 1), emission (nt, N), F
+(feat, nt * N) and H (depth, width, nt * N) with column t * N + n,
+weights as nn.Linear's (out, in) with biases (out,).
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 
 from bhnerf_tpu_torch import emission as emission_lib
+from bhnerf_tpu_torch import tracing
 from bhnerf_tpu_torch.models.fields import (has_learned_injection,
                                             learned_t_injection, skip_after)
 from bhnerf_tpu_torch.ops import _build
@@ -43,6 +49,13 @@ TILE_N = 64
 # by its shared memory, which render_bwd checks against the card. The
 # wrappers zero-pad any other width up to the next multiple of 16
 MAX_WIDTH = 128
+# The forward stashes its hidden activations for the backward, which then
+# reads them instead of running the MLP's products a second time, when
+# their float32 bytes (depth x width x nt * N x 4) are within this share
+# of the card's total memory; larger shapes recompute them. The shape and
+# the card decide, never the memory free at the time, so a shape always
+# takes the same path.
+ACT_STASH_SHARE = 1 / 8
 
 
 def pack_params(params):
@@ -107,25 +120,34 @@ def _forward_chain_plain(F, weights, biases, cfg, bf16):
 
 def render_fwd_plain(t_eff, coords, omega, tg, smask, weights, biases, cfg,
                      scale, deg, compute_dtype='float32', stash=False):
-    """Plain version of the forward kernel: emission (nt, N), plus the
-    features F (feat, nt * N) when `stash`."""
+    """Plain version of the forward kernel: emission (nt, N), or with
+    `stash` (emission, the features F (feat, nt * N), the hidden
+    activations H (depth, width, nt * N))."""
     bf16 = compute_dtype == 'bfloat16'
     nt, n = t_eff.shape[0], coords.shape[1]
     F, mask = _prologue_plain(t_eff, coords, omega, tg, smask, scale, deg,
                               bf16)
-    _, out = _forward_chain_plain(F, weights, biases, cfg, bf16)
+    acts, out = _forward_chain_plain(F, weights, biases, cfg, bf16)
     em = torch.sigmoid(out - 10.0).reshape(nt, n) * mask
-    return (em, F) if stash else em
+    if not stash:
+        return em
+    return em, F, torch.stack([h[:cfg[1]] for h in acts])
 
 
 def render_bwd_plain(g_em, em, F, omega, weights, biases, cfg, deg,
-                     compute_dtype='float32', want_dt=False):
+                     compute_dtype='float32', want_dt=False, acts=None):
     """Plain version of the backward kernel: ([dW_i], [db_i], d_t (nt, 1))
-    from the stashed (F, em); mirrors reference fused.py:198-302."""
+    from the stashed (F, em), with the hidden activations `acts` (H of
+    the forward; rows past the width, a padded H's, are ignored) or, if
+    None, recomputed from F; mirrors reference fused.py:198-302."""
     bf16 = compute_dtype == 'bfloat16'
     depth, width, do_skip = cfg
     nt, n = g_em.shape
-    acts, _ = _forward_chain_plain(F, weights, biases, cfg, bf16)
+    if acts is None:
+        acts, _ = _forward_chain_plain(F, weights, biases, cfg, bf16)
+    else:
+        acts = [torch.cat([h[:width], F]) if skip_after(i, depth, do_skip)
+                else h[:width] for i, h in enumerate(acts)]
     d_out = _round((g_em * em * (1.0 - em)).reshape(1, -1), bf16)
     gw = [None] * (depth + 1)
     gb = [None] * (depth + 1)
@@ -172,7 +194,8 @@ def render_bwd_plain(g_em, em, F, omega, weights, biases, cfg, deg,
 # ---------------------------------------------------------------------------
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-FWD_ARGTYPES = [_P] * 10 + [_I] * 7 + [ctypes.c_float, _I, _P]
+FWD_ARGTYPES = [_P] * 11 + [_I] * 7 + [ctypes.c_float, _I, _P]
+BWD_ARGTYPES = [_P] * 8 + [_I] + [_P] * 3 + [_I] * 10 + [_P]
 
 
 @functools.lru_cache(maxsize=None)
@@ -184,8 +207,7 @@ def _lib():
     lib.fused_render_fwd_scratch.restype = _I
     lib.fused_render_fwd_occupancy.argtypes = [_I] * 5 + [_P, _P]
     lib.fused_render_fwd_occupancy.restype = _I
-    lib.fused_render_bwd.argtypes = ([_P] * 7 + [_I] + [_P] * 3 + [_I] * 10
-                                     + [_P])
+    lib.fused_render_bwd.argtypes = BWD_ARGTYPES
     lib.fused_render_bwd.restype = _I
     lib.fused_render_bwd_smem.argtypes = [_I, _I, _I]
     lib.fused_render_bwd_smem.restype = ctypes.c_size_t
@@ -289,6 +311,14 @@ def _pack_cuda(weights, biases, cfg, feat, bf16):
     return w, b, n_params
 
 
+def act_stash_fits(depth, width, cols, total_memory):
+    """Whether the forward stashes the hidden activations of `cols`
+    columns of an MLP of `depth` hidden layers of `width` (padded) units
+    on a card of `total_memory` bytes: their float32 bytes against
+    ACT_STASH_SHARE of it."""
+    return 4 * depth * width * cols <= ACT_STASH_SHARE * total_memory
+
+
 def _ptr(x):
     return None if x is None else x.data_ptr()
 
@@ -300,7 +330,10 @@ def _stream(device):
 def render_fwd(t_eff, coords, omega, tg, smask, weights, biases, cfg, scale,
                deg, compute_dtype='float32', stash=False):
     """Forward kernel (CUDA tensors) or its plain version (CPU tensors).
-    Returns emission (nt, N), and F (feat, nt * N) with `stash`."""
+    Returns emission (nt, N), or with `stash` (emission, F (feat, nt * N),
+    H (depth, width, nt * N)). On the card H has the width padded to a
+    multiple of 16, and is None where it would not fit `act_stash_fits`:
+    the backward then recomputes it."""
     if coords.device.type == 'cpu':
         return render_fwd_plain(t_eff, coords, omega, tg, smask, weights,
                                 biases, cfg, scale, deg, compute_dtype, stash)
@@ -319,32 +352,40 @@ def render_fwd(t_eff, coords, omega, tg, smask, weights, biases, cfg, scale,
                                                   int(do_skip)),
                      dtype=torch.float32, device=coords.device)
     em = torch.empty((nt, n), dtype=torch.float32, device=coords.device)
-    f_store = (torch.empty((feat, nt * n), dtype=torch.float32,
-                           device=coords.device) if stash else None)
+    f_store = h_store = None
+    if stash:
+        f_store = torch.empty((feat, nt * n), dtype=torch.float32,
+                              device=coords.device)
+        total = torch.cuda.get_device_properties(coords.device).total_memory
+        if act_stash_fits(depth, width, nt * n, total):
+            h_store = torch.empty((depth, width, nt * n),
+                                  dtype=torch.float32, device=coords.device)
     err = lib.fused_render_fwd(
         _ptr(t_eff), _ptr(coords), _ptr(omega), _ptr(tg), _ptr(smask),
-        _ptr(w), _ptr(b), _ptr(wf), _ptr(em), _ptr(f_store), nt, n, depth,
-        width, feat, int(do_skip), deg, float(np.float32(1.0 / scale)),
-        int(bf16), _stream(coords.device))
+        _ptr(w), _ptr(b), _ptr(wf), _ptr(em), _ptr(f_store), _ptr(h_store),
+        nt, n, depth, width, feat, int(do_skip), deg,
+        float(np.float32(1.0 / scale)), int(bf16), _stream(coords.device))
     _build.check(err, 'fused_render_fwd')
     render_fwd.launches += 1
-    return (em, f_store) if stash else em
+    return (em, f_store, h_store) if stash else em
 
 
 render_fwd.launches = 0
 
 
 def render_bwd(g_em, em, f_store, omega, weights, biases, cfg, deg,
-               compute_dtype='float32', want_dt=False):
+               compute_dtype='float32', want_dt=False, acts=None):
     """Backward kernel (CUDA tensors) or its plain version (CPU tensors).
-    Returns ([dW_i (out, in)], [db_i (out,)], d_t (nt, 1)).
+    Returns ([dW_i (out, in)], [db_i (out,)], d_t (nt, 1)). `acts` is the
+    forward's H: the kernel reads the hidden activations from it, and
+    recomputes them from F where it is None.
 
     On the card the parameter gradients come from a persistent grid of one
     block per SM, each summing its tiles into a private partial, and a
     fixed-order sum of the partials: deterministic from run to run."""
     if g_em.device.type == 'cpu':
         return render_bwd_plain(g_em, em, f_store, omega, weights, biases,
-                                cfg, deg, compute_dtype, want_dt)
+                                cfg, deg, compute_dtype, want_dt, acts)
     if g_em.device.type != 'cuda':
         raise ValueError(f'no fused kernel for device {g_em.device}')
     caller = weights, biases, cfg
@@ -355,6 +396,11 @@ def render_bwd(g_em, em, f_store, omega, weights, biases, cfg, deg,
     bf16 = compute_dtype == 'bfloat16'
     g_em = g_em.contiguous()
     _check_cuda_inputs([g_em, em, f_store, omega], n)
+    if acts is not None:
+        _check_cuda_inputs([g_em, acts], n)
+        if acts.shape != (depth, width, nt * n):
+            raise ValueError(f'activation stash of shape {tuple(acts.shape)}'
+                             f'; the backward takes {(depth, width, nt * n)}')
     lib = _lib()
     smem = lib.fused_render_bwd_smem(depth, width, feat)
     props = torch.cuda.get_device_properties(g_em.device)
@@ -372,12 +418,14 @@ def render_bwd(g_em, em, f_store, omega, weights, biases, cfg, deg,
     grads = torch.empty(n_params, dtype=torch.float32, device=dev)
     d_t = torch.empty((nt, 1), dtype=torch.float32, device=dev)
     err = lib.fused_render_bwd(
-        _ptr(g_em), _ptr(em), _ptr(f_store), _ptr(omega), _ptr(w), _ptr(b),
-        _ptr(partial), stride, _ptr(dt_partial), _ptr(grads), _ptr(d_t), nt,
-        n, depth, width, feat, int(do_skip), deg, int(bf16), int(want_dt),
-        grid, _stream(dev))
+        _ptr(g_em), _ptr(em), _ptr(f_store), _ptr(acts), _ptr(omega),
+        _ptr(w), _ptr(b), _ptr(partial), stride, _ptr(dt_partial),
+        _ptr(grads), _ptr(d_t), nt, n, depth, width, feat, int(do_skip), deg,
+        int(bf16), int(want_dt), grid, _stream(dev))
     _build.check(err, 'fused_render_bwd')
     render_bwd.launches += 1
+    tracing.counters.add('render_bwd.recomputed' if acts is None
+                         else 'render_bwd.from_stash')
     gw, gb, off = [], [], 0
     for wi in weights:
         out, k = wi.shape
@@ -408,9 +456,10 @@ class _Spec(NamedTuple):
 
 class _FusedRender(torch.autograd.Function):
     """The reference's custom VJP (fused_render/_fr_fwd/_fr_bwd,
-    fused.py:462-536) as one autograd Function: the forward stashes F and
-    the emission, the backward runs render_bwd. The frozen ray constants
-    get zero cotangents, and so do the `n_zero` extra leaves (the
+    fused.py:462-536) as one autograd Function: the forward stashes F, the
+    hidden activations (where they fit the card's budget) and the
+    emission, the backward runs render_bwd on them. The frozen ray
+    constants get zero cotangents, and so do the `n_zero` extra leaves (the
     learnable injection offset, whose gradient arrives through t_eff)."""
 
     @staticmethod
@@ -422,25 +471,25 @@ class _FusedRender(torch.autograd.Function):
             return render_fwd(t_eff, coords, omega, tg, smask, weights,
                               biases, spec.cfg, spec.scale, spec.deg,
                               spec.compute_dtype)
-        em, f_store = render_fwd(t_eff, coords, omega, tg, smask, weights,
-                                 biases, spec.cfg, spec.scale, spec.deg,
-                                 spec.compute_dtype, stash=True)
+        em, f_store, h_store = render_fwd(
+            t_eff, coords, omega, tg, smask, weights, biases, spec.cfg,
+            spec.scale, spec.deg, spec.compute_dtype, stash=True)
         ctx.spec = spec
         ctx.frozen_shapes = [x.shape for x in (coords, omega, tg, smask)]
-        ctx.save_for_backward(em, f_store, omega, *tensors)
+        ctx.save_for_backward(em, f_store, h_store, omega, *tensors)
         return em
 
     @staticmethod
     def backward(ctx, g_em):
         spec = ctx.spec
-        em, f_store, omega, *tensors = ctx.saved_tensors
+        em, f_store, h_store, omega, *tensors = ctx.saved_tensors
         n_layers = spec.cfg[0] + 1
         zero_leaves = tensors[:spec.n_zero]
         weights = tensors[spec.n_zero:spec.n_zero + n_layers]
         biases = tensors[spec.n_zero + n_layers:]
         gw, gb, d_t = render_bwd(g_em, em, f_store, omega, weights, biases,
                                  spec.cfg, spec.deg, spec.compute_dtype,
-                                 want_dt=spec.want_dt)
+                                 want_dt=spec.want_dt, acts=h_store)
         needs = ctx.needs_input_grad
         frozen = [torch.zeros(shape, dtype=torch.float32, device=g_em.device)
                   if needs[2 + k] else None

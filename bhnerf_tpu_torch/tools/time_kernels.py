@@ -7,17 +7,20 @@ with posenc degree 3, inputs from a numpy seed. The variants are timed in
 the given order (mean of --repeats launches by CUDA events), in f32 and
 bf16, and checked against the plain version:
 
-* `--kernel fwd`: `fused_render_fwd` with and without the stash of F;
-  emission held to atol 2e-6 / rtol 1e-4 and F to 1e-5 in f32 (2e-3 / 2e-2
-  and one bf16 step in bf16). A source that exports
-  `fused_render_fwd_scratch` takes the scratch buffer for its reordered
-  weights and reports its occupancy; one that does not is called with the
-  older signature.
+* `--kernel fwd`: `fused_render_fwd` with and without the stash (F, and
+  the hidden activations H for a source whose forward takes `h_store`);
+  emission and H held to atol 2e-6 / rtol 1e-4 and F to 1e-5 in f32
+  (2e-3 / 2e-2 and one bf16 step in bf16; H as `stash_agrees` says). A
+  source that exports `fused_render_fwd_scratch` takes the scratch buffer
+  for its reordered weights and reports its occupancy; one that does not
+  is called with the older signature.
 * `--kernel bwd`: `fused_render_bwd` with and without the frame-time
-  cotangent, on F and the emission from the forward's plain version and
-  the cotangent of a squared error against a random target. Every call
-  also zeroes its partials, as the wrapper does. Each variant's gradients
-  are also compared bitwise with the first variant's.
+  cotangent, on F, H and the emission from the forward's plain version
+  and the cotangent of a squared error against a random target, on both
+  paths: `recompute` (no H) and, for a source that takes `h_store`,
+  `stash` (H read). Every call also zeroes its partials, as the wrapper
+  does. Each variant's gradients are also compared bitwise with the first
+  variant's on the same path.
 
     python -m bhnerf_tpu_torch.tools.time_kernels --kernel fwd \\
         --variant parent=path/to/old/fused_render.cu \\
@@ -64,18 +67,21 @@ def build(variants):
         if proc.returncode != 0:
             raise RuntimeError(f'nvcc failed for {name}:\n{err}')
         lib = ctypes.CDLL(str(BUILD / name / 'libfused_render.so'))
-        lib.fused_render_bwd.argtypes = ([fused._P] * 7 + [fused._I]
-                                         + [fused._P] * 3 + [fused._I] * 10
-                                         + [fused._P])
+        # both kernels take the activation stash after F, and the forward
+        # its weights' scratch before em, only in sources that have them
+        lib.takes_acts = 'h_store' in variants[name][0].read_text()
+        has_scratch = hasattr(lib, 'fused_render_fwd_scratch')
+        lib.fused_render_bwd.argtypes = (
+            fused.BWD_ARGTYPES if lib.takes_acts
+            else fused.BWD_ARGTYPES[:3] + fused.BWD_ARGTYPES[4:])
         lib.fused_render_bwd.restype = fused._I
-        if hasattr(lib, 'fused_render_fwd_scratch'):
-            lib.fused_render_fwd.argtypes = fused.FWD_ARGTYPES
+        if has_scratch:
             lib.fused_render_fwd_scratch.argtypes = [fused._I] * 4
             lib.fused_render_fwd_occupancy.argtypes = ([fused._I] * 5
                                                        + [fused._P] * 2)
-        else:       # before the forward took scratch for its weights
-            lib.fused_render_fwd.argtypes = (
-                fused.FWD_ARGTYPES[:9] + fused.FWD_ARGTYPES[10:])
+        lib.fused_render_fwd.argtypes = (
+            [fused._P] * (9 + has_scratch + lib.takes_acts)
+            + fused.FWD_ARGTYPES[11:])
         lib.fused_render_fwd.restype = fused._I
         ptxas = [l.strip() for l in err.splitlines()
                  if 'registers' in l or 'spill' in l or 'Compiling' in l]
@@ -103,8 +109,10 @@ def make_inputs(device):
     return weights, biases, t_eff, coords, omega, tg, smask, target
 
 
-def runner(lib, dtype, want_dt, em, F, omega, g, weights, biases, device):
-    """A wrapper-equivalent call of one build: returns fn() -> grads."""
+def runner(lib, dtype, want_dt, em, F, H, omega, g, weights, biases,
+           device):
+    """A wrapper-equivalent call of one build, reading the activations
+    from H or, if None, recomputing them: returns fn() -> grads."""
     bf16 = dtype == 'bfloat16'
     feat = F.shape[0]
     w, b, n_params = fused._pack_cuda(weights, biases, CFG, feat, bf16)
@@ -117,14 +125,16 @@ def runner(lib, dtype, want_dt, em, F, omega, g, weights, biases, device):
     d_t = torch.empty((NT, 1), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
 
+    acts = [fused._ptr(H)] if lib.takes_acts else []
+
     def fn():
         partial.zero_()
         dt_partial.zero_()
         err = lib.fused_render_bwd(
-            g.data_ptr(), em.data_ptr(), F.data_ptr(), omega.data_ptr(),
-            w.data_ptr(), b.data_ptr(), partial.data_ptr(), stride,
-            dt_partial.data_ptr(), grads.data_ptr(), d_t.data_ptr(), NT, N,
-            DEPTH, WIDTH, feat, 1, DEG, int(bf16), int(want_dt), grid,
+            g.data_ptr(), em.data_ptr(), F.data_ptr(), *acts,
+            omega.data_ptr(), w.data_ptr(), b.data_ptr(), partial.data_ptr(),
+            stride, dt_partial.data_ptr(), grads.data_ptr(), d_t.data_ptr(),
+            NT, N, DEPTH, WIDTH, feat, 1, DEG, int(bf16), int(want_dt), grid,
             stream)
         _build.check(err, 'fused_render_bwd')
         return grads, d_t
@@ -133,7 +143,8 @@ def runner(lib, dtype, want_dt, em, F, omega, g, weights, biases, device):
 
 
 def fwd_runner(lib, dtype, stash, inputs, device):
-    """A wrapper-equivalent forward call of one build: fn() -> (em, F)."""
+    """A wrapper-equivalent forward call of one build: fn() -> (em, F, H),
+    F and H None without the stash, H None for a build without one."""
     weights, biases, t_eff, coords, omega, tg, smask, _ = inputs
     bf16 = dtype == 'bfloat16'
     feat = 3 * (1 + 2 * DEG)
@@ -141,6 +152,9 @@ def fwd_runner(lib, dtype, stash, inputs, device):
     em = torch.empty((NT, N), dtype=torch.float32, device=device)
     F = (torch.empty((feat, NT * N), dtype=torch.float32, device=device)
          if stash else None)
+    H = (torch.empty((DEPTH, WIDTH, NT * N), dtype=torch.float32,
+                     device=device) if stash and lib.takes_acts else None)
+    acts = [fused._ptr(H)] if lib.takes_acts else []
     wf = None
     if hasattr(lib, 'fused_render_fwd_scratch'):
         wf = torch.empty(lib.fused_render_fwd_scratch(DEPTH, WIDTH, feat, 1),
@@ -152,14 +166,34 @@ def fwd_runner(lib, dtype, stash, inputs, device):
         err = lib.fused_render_fwd(
             t_eff.data_ptr(), coords.data_ptr(), omega.data_ptr(),
             tg.data_ptr(), smask.data_ptr(), w.data_ptr(), b.data_ptr(),
-            *scratch, em.data_ptr(), fused._ptr(F), NT, N, DEPTH, WIDTH,
-            feat, 1, DEG, float(np.float32(1.0 / SCALE)), int(bf16), stream)
+            *scratch, em.data_ptr(), fused._ptr(F), *acts, NT, N, DEPTH,
+            WIDTH, feat, 1, DEG, float(np.float32(1.0 / SCALE)), int(bf16),
+            stream)
         _build.check(err, 'fused_render_fwd')
-        return em, F
+        return em, F, H
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     fn.grid = min(sms, -(-NT * N // 128))
     fn.scratch = wf                 # lives as long as the calls
     return fn
+
+
+def stash_agrees(h_kernel, h_plain, compute_dtype):
+    """(max abs difference, share of values outside the emission's
+    tolerance, whether the kernel's activation stash agrees with the plain
+    forward's): atol 2e-6 / rtol 1e-4 in f32. In bf16 a value on a
+    rounding boundary may round to the neighbouring bf16 value in one
+    version and not the other, and the layers after it carry that
+    difference on, so all but 1e-4 of the values are held to the
+    emission's atol 2e-3 / rtol 2e-2, and every value to 2e-2 of the
+    stash's largest magnitude."""
+    diff = (h_kernel - h_plain).abs()
+    err = float(diff.max())
+    if compute_dtype == 'float32':
+        ok = torch.allclose(h_kernel, h_plain, atol=2e-6, rtol=1e-4)
+        return err, float(not ok), bool(ok)
+    share = float((diff > 2e-3 + 2e-2 * h_plain.abs()).float().mean())
+    largest = float(h_plain.abs().max())
+    return err, share, bool(share < 1e-4 and err <= 2e-2 * largest)
 
 
 def occupancy(lib, bf16):
@@ -185,9 +219,9 @@ def time_forward(libs, order, repeats, inputs, device):
                       f'{occ[0]} block(s) of {occ[1]} threads per SM = '
                       f'{occ[0] * occ[1] // 32} warps', flush=True)
     for dtype in ('float32', 'bfloat16'):
-        em_p, f_p = fused.render_fwd_plain(t_eff, coords, omega, tg, smask,
-                                           weights, biases, CFG, SCALE, DEG,
-                                           dtype, stash=True)
+        em_p, f_p, h_p = fused.render_fwd_plain(
+            t_eff, coords, omega, tg, smask, weights, biases, CFG, SCALE,
+            DEG, dtype, stash=True)
         # bf16: a value on a rounding boundary may round to the neighbouring
         # bf16 value in one version and not the other
         tol = (dict(atol=2e-6, rtol=1e-4), 1e-5) if dtype == 'float32' \
@@ -197,30 +231,34 @@ def time_forward(libs, order, repeats, inputs, device):
                    for name, (lib, _) in libs.items()}
             checks = {}
             for name, fn in fns.items():
-                em, F = fn()
+                em, F, H = fn()
                 torch.cuda.synchronize()
                 em_err = float((em - em_p).abs().max())
                 f_err = float((F - f_p).abs().max()) if stash else None
-                ok = torch.allclose(em, em_p, **tol[0]) and \
+                h_err, _, h_ok = stash_agrees(H, h_p, dtype) \
+                    if H is not None else (None, 0.0, True)
+                ok = torch.allclose(em, em_p, **tol[0]) and h_ok and \
                     (f_err is None or f_err <= tol[1])
-                checks[name] = (em_err, f_err, ok)
+                checks[name] = (em_err, f_err, h_err, ok)
             for name in order:
                 ms = cuda_ms(fns[name], repeats)
-                em_err, f_err, ok = checks[name]
+                em_err, f_err, h_err, ok = checks[name]
                 row = dict(kernel='fwd', variant=name, dtype=dtype,
-                           stash=stash, ms=ms, em_err=em_err, f_err=f_err,
-                           ok=ok)
+                           stash=stash, acts=h_err is not None, ms=ms,
+                           em_err=em_err, f_err=f_err, h_err=h_err, ok=ok)
                 share = phase_split(libs[name][0], fns[name], 'fwd')
                 if share is not None:
                     row['phase_share'] = share
                 results.append(row)
                 print(f'fwd {dtype} stash={stash} {name}: {ms:.3f} ms, '
-                      f'max|em - plain| {em_err:.3e}, features {f_err} '
-                      f'({"ok" if ok else "FAIL"})', flush=True)
+                      f'max|em - plain| {em_err:.3e}, features {f_err}, '
+                      f'activations {h_err} ({"ok" if ok else "FAIL"})',
+                      flush=True)
     return results
 
 
-PHASES = ('feature load', 'recompute', 'head', 'masks + bias sums',
+PHASES = ('feature load', 'recompute or stash wait', 'head',
+          'masks + bias sums',
           'weight grads + products back', 'frame-time cotangent')
 
 
@@ -282,17 +320,20 @@ def time_backward(libs, order, repeats, inputs, device):
     weights, biases, t_eff, coords, omega, tg, smask, target = inputs
     results = []
     for dtype in ('float32', 'bfloat16'):
-        em, F = fused.render_fwd_plain(t_eff, coords, omega, tg, smask,
-                                       weights, biases, CFG, SCALE, DEG,
-                                       dtype, stash=True)
+        em, F, H = fused.render_fwd_plain(t_eff, coords, omega, tg, smask,
+                                          weights, biases, CFG, SCALE, DEG,
+                                          dtype, stash=True)
         g = (2.0 * (em - target)).contiguous()   # a squared-error loss
-        for want_dt in (False, True):
+        for want_dt, path in ((False, 'recompute'), (False, 'stash'),
+                              (True, 'recompute'), (True, 'stash')):
             gp = fused.render_bwd_plain(g, em, F, omega, weights, biases,
                                         CFG, DEG, dtype, want_dt)
             ref = gp[0] + gp[1]
-            fns = {name: runner(lib, dtype, want_dt, em, F, omega, g,
+            acts = H if path == 'stash' else None
+            fns = {name: runner(lib, dtype, want_dt, em, F, acts, omega, g,
                                 weights, biases, device)
-                   for name, (lib, _) in libs.items()}
+                   for name, (lib, _) in libs.items()
+                   if path == 'recompute' or lib.takes_acts}
             checks, first = {}, None
             for name, fn in fns.items():
                 grads, d_t = fn()
@@ -308,17 +349,18 @@ def time_backward(libs, order, repeats, inputs, device):
                 same = torch.equal(grads, first[0]) and \
                     (not want_dt or torch.equal(d_t, first[1]))
                 checks[name] = (norm, dt_rel, same)
-            for name in order:
+            for name in (v for v in order if v in fns):
                 ms = cuda_ms(fns[name], repeats)
                 norm, dt_rel, same = checks[name]
                 row = dict(kernel='bwd', variant=name, dtype=dtype,
-                           want_dt=want_dt, ms=ms, norm_err=norm,
+                           want_dt=want_dt, path=path, ms=ms, norm_err=norm,
                            dt_rel_err=dt_rel, bitwise_as_first=same)
                 share = phase_split(libs[name][0], fns[name])
                 if share is not None:
                     row['phase_share'] = share
                 results.append(row)
-                print(f'bwd {dtype} want_dt={want_dt} {name}: {ms:.3f} ms, '
+                print(f'bwd {dtype} want_dt={want_dt} {path} {name}: '
+                      f'{ms:.3f} ms, '
                       f'normalised err {norm:.3e}, d_t rel err {dt_rel}, '
                       f'bitwise as the first variant: {same}', flush=True)
     return results

@@ -19,8 +19,10 @@ that drives the training loop.
 
 Counters always count: `counters` is a `Census` of the training loop's
 host synchronisations (`host_syncs.<site>`), its copies of frame indices
-from the host (`h2d.<site>`, with their bytes as the total) and the
-kernel loads and builds (`kernels.loaded`, `kernels.built`). A mesh
+from the host (`h2d.<site>`, with their bytes as the total), the
+kernel loads and builds (`kernels.loaded`, `kernels.built`) and each
+render backward by its path (`render_bwd.from_stash`,
+`render_bwd.recomputed`, counted by `ops.fused.render_bwd`). A mesh
 counts its collectives in a `Census` of its own
 (`parallel.mesh.Mesh.census`). Kernel launches are counted on the
 kernels' wrappers (`ops.fused.render_fwd.launches`, `.render_bwd.launches`,

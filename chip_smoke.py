@@ -313,15 +313,17 @@ def mlp_dims(cfg, feat):
     return dims
 
 
-def bound(kind, cfg, feat, nt, n, n_params, compute_dtype, want_dt=False):
+def bound(kind, cfg, feat, nt, n, n_params, compute_dtype, want_dt=False,
+          stash=False):
     """(bound_ms, bound_by, tera-ops): the least time the card could take
     for this call. Operations: 2 per multiply-add of the products, TF32
     on the tensor cores, three products each in f32 mode (3xTF32), one
-    in bf16 mode; forward = the layer products, backward = recompute +
-    weight gradients + products back through the weights (layer 0's only
-    with want_dt). Bytes: each input read once and each output written
-    once (forward: per-sample rows, frame times, parameters, emission;
-    backward: g_em, emission, stashed features, omega, parameters,
+    in bf16 mode; forward = the layer products, backward = weight
+    gradients + products back through the weights (layer 0's only with
+    want_dt) + without the activation `stash` the recompute. Bytes: each
+    input read once and each output written once (forward: per-sample
+    rows, frame times, parameters, emission; backward: g_em, emission,
+    stashed features and with `stash` activations, omega, parameters,
     gradients)."""
     cols = nt * n
     macs = [i * o for i, o in mlp_dims(cfg, feat)]
@@ -330,8 +332,9 @@ def bound(kind, cfg, feat, nt, n, n_params, compute_dtype, want_dt=False):
         nbytes = 4 * (6 * n + nt + n_params + cols)
     else:
         back = sum(macs[1:]) + (macs[0] if want_dt else 0)
-        flop = 2 * cols * (2 * sum(macs) + back)
-        nbytes = 4 * ((2 + feat) * cols + n + 2 * n_params + 2 * nt)
+        flop = 2 * cols * ((1 if stash else 2) * sum(macs) + back)
+        acts = cfg[0] * cfg[1] if stash else 0
+        nbytes = 4 * ((2 + feat + acts) * cols + n + 2 * n_params + 2 * nt)
     ops = flop * (3 if compute_dtype == 'float32' else 1)
     t_ops, t_bytes = ops / TF32_FLOPS, nbytes / HBM_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
@@ -417,20 +420,23 @@ def kernel_checks(predictor, crt, t_frames, device):
 
     import torch
     from bhnerf_tpu_torch.ops import _build, fused
+    from bhnerf_tpu_torch.tools.time_kernels import stash_agrees
 
     rng = np.random.default_rng(0)
     n = crt.coords.shape[1]
     common = kernel_inputs(predictor, crt, t_frames, rng, device)
     t_eff, coords, omega, tg, smask, weights, biases, cfg, _, deg = common
 
-    em_k, f_k = fused.render_fwd(*common, 'float32', stash=True)
-    em_p, f_p = fused.render_fwd_plain(*common, 'float32', stash=True)
+    em_k, f_k, h_k = fused.render_fwd(*common, 'float32', stash=True)
+    em_p, f_p, h_p = fused.render_fwd_plain(*common, 'float32', stash=True)
     torch.cuda.synchronize()
     fwd_err = float((em_k - em_p).abs().max())
-    ok = torch.allclose(em_k, em_p, atol=2e-6, rtol=1e-4)
+    h_err, _, h_ok = stash_agrees(h_k, h_p, 'float32')
+    ok = torch.allclose(em_k, em_p, atol=2e-6, rtol=1e-4) and h_ok
     f_err = float((f_k - f_p).abs().max())
     log(f'fwd f32: max|em_kernel - em_plain| = {fwd_err:.3e} (atol 2e-6, '
-        f'rtol 1e-4: {"ok" if ok else "FAIL"}); features {f_err:.3e}')
+        f'rtol 1e-4: {"ok" if ok else "FAIL"}); features {f_err:.3e}; '
+        f'activation stash {h_err} (the same tolerance)')
     if not ok or f_err > 1e-5:
         raise RuntimeError('forward kernel disagrees with its plain version')
     fwd_ms = cuda_ms(lambda: fused.render_fwd(*common, 'float32'))
@@ -472,50 +478,69 @@ def kernel_checks(predictor, crt, t_frames, device):
     g_em = (2.0 * (em_p - target)).contiguous()
     bwd = {}
     for want_dt in (False, True):
+        # the main path reads the activation stash; the recompute is the
+        # path of shapes over the stash's budget
         gk = fused.render_bwd(g_em, em_p, f_p, omega, weights, biases, cfg,
-                              deg, 'float32', want_dt)
+                              deg, 'float32', want_dt, h_p)
         gp = fused.render_bwd_plain(g_em, em_p, f_p, omega, weights, biases,
                                     cfg, deg, 'float32', want_dt)
+        gr = fused.render_bwd(g_em, em_p, f_p, omega, weights, biases, cfg,
+                              deg, 'float32', want_dt)
+        # the kernel's own stash against its recompute, as in training
+        gs = fused.render_bwd(g_em, em_p, f_p, omega, weights, biases, cfg,
+                              deg, 'float32', want_dt, h_k)
         torch.cuda.synchronize()
         err, norm_err = grad_errors(gp, gk)
+        r_norm = grad_errors(gp, gr)[1]
+        s_norm = grad_errors(gr, gs)[1]
+        bitwise = all(torch.equal(a, b) for a, b in
+                      zip(gr[0] + gr[1] + [gr[2]], gs[0] + gs[1] + [gs[2]]))
         line = (f'bwd f32 want_dt={want_dt}: max|dW_kernel - dW_plain| = '
-                f'{err:.3e}, normalised {norm_err:.3e} (atol 5e-5)')
-        if norm_err > 5e-5:
+                f'{err:.3e}, normalised {norm_err:.3e} from the stash, '
+                f'{r_norm:.3e} recomputed (atol 5e-5); the kernel\'s stash '
+                f'against its recompute {s_norm:.3e}, bitwise equal: '
+                f'{bitwise}')
+        if max(norm_err, r_norm, s_norm) > 5e-5:
             raise RuntimeError(f'backward kernel disagrees: {line}')
         if want_dt:
-            dt_rel = float(((gk[2] - gp[2]).abs()
-                            / (gp[2].abs() + 1e-12)).max())
+            dt_rel = max(float(((x[2] - gp[2]).abs()
+                                / (gp[2].abs() + 1e-12)).max())
+                         for x in (gk, gr, gs))
             line += f'; d_t rel err {dt_rel:.3e} (rtol 2e-3)'
             if dt_rel > 2e-3 or not bool((gp[2].abs() > 0).all()):
                 raise RuntimeError(f'frame-time cotangent disagrees: {line}')
         # deterministic: the same call twice gives bitwise the same sums
-        again = fused.render_bwd(g_em, em_p, f_p, omega, weights, biases,
-                                 cfg, deg, 'float32', want_dt)
-        same = all(torch.equal(a, b) for a, b in
-                   zip(gk[0] + gk[1] + [gk[2]],
-                       again[0] + again[1] + [again[2]]))
-        if not same:
-            raise RuntimeError('backward kernel is not deterministic')
+        for acts, first in ((h_p, gk), (None, gr)):
+            again = fused.render_bwd(g_em, em_p, f_p, omega, weights, biases,
+                                     cfg, deg, 'float32', want_dt, acts)
+            if not all(torch.equal(a, b) for a, b in
+                       zip(first[0] + first[1] + [first[2]],
+                           again[0] + again[1] + [again[2]])):
+                raise RuntimeError('backward kernel is not deterministic')
         k_ms = cuda_ms(lambda: fused.render_bwd(
+            g_em, em_p, f_p, omega, weights, biases, cfg, deg, 'float32',
+            want_dt, h_p))
+        rec_ms = cuda_ms(lambda: fused.render_bwd(
             g_em, em_p, f_p, omega, weights, biases, cfg, deg, 'float32',
             want_dt))
         p_ms = cuda_ms(lambda: fused.render_bwd_plain(
             g_em, em_p, f_p, omega, weights, biases, cfg, deg, 'float32',
             want_dt))
         b_ms, b_by, b_tops = bound('bwd', cfg, f_p.shape[0], *g_em.shape,
-                                   n_params, 'float32', want_dt)
-        log(f'{line}; bitwise repeatable; kernel {k_ms:.3f} ms, plain '
+                                   n_params, 'float32', want_dt, stash=True)
+        log(f'{line}; both paths bitwise repeatable; kernel {k_ms:.3f} ms '
+            f'from the stash, {rec_ms:.3f} ms recomputing, plain '
             f'{p_ms:.3f} ms; bound {b_ms:.3f} ms ({b_by}: {b_tops:.1f} '
             f'T TF32 ops), kernel at {100 * b_ms / k_ms:.1f}% of it')
-        bwd[want_dt] = (err, k_ms, p_ms, b_ms, b_by)
+        bwd[want_dt] = (err, k_ms, p_ms, b_ms, b_by, rec_ms)
 
     # bf16 operands against the f32 plain version (test_fused.py:83-114)
-    em_b, f_b = fused.render_fwd(*common, 'bfloat16', stash=True)
+    em_b, f_b, h_b = fused.render_fwd(*common, 'bfloat16', stash=True)
     loss_ref = float(((em_p - target) ** 2).sum())
     loss_b = float(((em_b - target) ** 2).sum())
     g_b = (2.0 * (em_b - target)).contiguous()
     gk = fused.render_bwd(g_b, em_b, f_b, omega, weights, biases, cfg, deg,
-                          'bfloat16', False)
+                          'bfloat16', False, h_b)
     gp = fused.render_bwd_plain(g_em, em_p, f_p, omega, weights, biases,
                                 cfg, deg, 'float32', False)
     cos = min(float(torch.nn.functional.cosine_similarity(
@@ -527,13 +552,17 @@ def kernel_checks(predictor, crt, t_frames, device):
                                              stash=True))
     bp_ms = cuda_ms(lambda: fused.render_fwd_plain(*common, 'bfloat16'))
     bb_ms = cuda_ms(lambda: fused.render_bwd(
+        g_b, em_b, f_b, omega, weights, biases, cfg, deg, 'bfloat16', False,
+        h_b))
+    bb_rec_ms = cuda_ms(lambda: fused.render_bwd(
         g_b, em_b, f_b, omega, weights, biases, cfg, deg, 'bfloat16', False))
     bbp_ms = cuda_ms(lambda: fused.render_bwd_plain(
         g_b, em_b, f_b, omega, weights, biases, cfg, deg, 'bfloat16', False))
     log(f'bf16 vs f32 plain: loss rel diff {loss_rel:.3e} (< 0.02), min '
         f'per-matrix gradient cosine {cos:.6f} (> 0.99); fwd kernel '
         f'{b_ms:.3f} ms (with stash {bs_ms:.3f} ms), plain {bp_ms:.3f} ms; '
-        f'bwd kernel {bb_ms:.3f} ms, plain {bbp_ms:.3f} ms')
+        f'bwd kernel {bb_ms:.3f} ms from the stash, {bb_rec_ms:.3f} ms '
+        f'recomputing, plain {bbp_ms:.3f} ms')
     if loss_rel > 0.02 or cos < 0.99:
         raise RuntimeError('bf16 kernels stray from the f32 reference')
 
@@ -547,7 +576,8 @@ def kernel_checks(predictor, crt, t_frames, device):
          'plain_ms': fwd_plain_ms, 'bound_ms': fwd_bound[0],
          'bound_by': fwd_bound[1], 'library_ms': None,
          'stash_ms': fwd_stash_ms, 'bf16_ms': b_ms, 'bf16_stash_ms': bs_ms,
-         'bf16_plain_ms': bp_ms, 'warps_per_sm': fwd_warps},
+         'bf16_plain_ms': bp_ms, 'warps_per_sm': fwd_warps,
+         'stash_acts_max_abs_err': h_err},
         {'name': 'fused_render_bwd', 'route': 'cuda',
          'source': 'bhnerf_tpu_torch/ops/csrc/fused_render.cu',
          'replaces': 'bhnerf_tpu/ops/fused.py:198', 'launches': 0,
@@ -556,14 +586,16 @@ def kernel_checks(predictor, crt, t_frames, device):
          'ms': bwd[False][1], 'plain_ms': bwd[False][2],
          'bound_ms': bwd[False][3], 'bound_by': bwd[False][4],
          'library_ms': None, 'want_dt_ms': bwd[True][1],
-         'bf16_ms': bb_ms, 'bf16_plain_ms': bbp_ms},
+         'recompute_ms': bwd[False][5], 'want_dt_recompute_ms': bwd[True][5],
+         'bf16_ms': bb_ms, 'bf16_recompute_ms': bb_rec_ms,
+         'bf16_plain_ms': bbp_ms},
     ]
 
 
 def train_main_path(predictor, crt, t_frames, device):
     """The Tutorial-3 image fit through the port's entry points."""
     import torch
-    from bhnerf_tpu_torch import units
+    from bhnerf_tpu_torch import tracing, units
     from bhnerf_tpu_torch.ops import fused
     from bhnerf_tpu_torch.train.optimizer import LogFn, Optimizer, TrainStep
 
@@ -586,18 +618,26 @@ def train_main_path(predictor, crt, t_frames, device):
 
     fused.render_fwd.launches = 0
     fused.render_bwd.launches = 0
+    paths = lambda: [tracing.counters.counts.get(f'render_bwd.{k}', 0)
+                     for k in ('from_stash', 'recomputed')]
+    before = paths()
     opt.run(BATCH, train_step, crt, log_fns=[LogFn(record)], verbose=False)
     torch.cuda.synchronize()
     launches = (fused.render_fwd.launches, fused.render_bwd.launches)
+    from_stash, recomputed = (a - b for a, b in zip(paths(), before))
     steps_per_s = (len(stamps) - 1) / (stamps[-1] - stamps[0])
     log(f'main path: {STEPS} steps at batch {BATCH}, losses '
         f'{losses[0]:.6g} -> {losses[-1]:.6g}; launches fwd {launches[0]}, '
-        f'bwd {launches[1]}; {steps_per_s:.2f} steps/s over steps 2..'
-        f'{STEPS} ({steps_per_s * BATCH * crt.coords.shape[1] / 1e6:.1f} M '
-        f'sample-frames/s)')
+        f'bwd {launches[1]} ({from_stash} from the activation stash, '
+        f'{recomputed} recomputing); {steps_per_s:.2f} steps/s over steps '
+        f'2..{STEPS} ({steps_per_s * BATCH * crt.coords.shape[1] / 1e6:.1f}'
+        f' M sample-frames/s)')
     if launches[0] < STEPS or launches[1] < STEPS:
         raise RuntimeError(f'main path did not go through the kernels: '
                            f'{launches}')
+    if (from_stash, recomputed) != (launches[1], 0):
+        raise RuntimeError(f'main path backward did not read the activation '
+                           f'stash: {from_stash} of {launches[1]} did')
     if not np.all(np.isfinite(losses)):
         raise RuntimeError(f'non-finite loss: {losses}')
     if not losses[-1] < losses[0]:
@@ -788,6 +828,7 @@ def alma_kernel_checks(predictor, crts, t_frames, device):
     checked; kernel times at the 'gather' count beside them."""
     import torch
     from bhnerf_tpu_torch.ops import fused
+    from bhnerf_tpu_torch.tools.time_kernels import stash_agrees
 
     out = {}
     for layout in ('native', 'gather'):
@@ -796,12 +837,14 @@ def alma_kernel_checks(predictor, crts, t_frames, device):
         common = kernel_inputs(predictor, crt, t_frames,
                                np.random.default_rng(2), device)
         _, _, omega, tg, _, weights, biases, cfg, _, deg = common
-        em_k, f_k = fused.render_fwd(*common, 'float32', stash=True)
-        em_p, f_p = fused.render_fwd_plain(*common, 'float32', stash=True)
+        em_k, f_k, h_k = fused.render_fwd(*common, 'float32', stash=True)
+        em_p, f_p, h_p = fused.render_fwd_plain(*common, 'float32',
+                                                stash=True)
         torch.cuda.synchronize()
         fwd_err = float((em_k - em_p).abs().max())
         f_err = float((f_k - f_p).abs().max())
         if not torch.allclose(em_k, em_p, atol=2e-6, rtol=1e-4) \
+                or not stash_agrees(h_k, h_p, 'float32')[2] \
                 or f_err > 1e-5 or float(em_p.max()) < 0.05:
             raise RuntimeError(f'ALMA {layout}: forward kernel disagrees '
                                f'with its plain version ({fwd_err:.3e}, '
@@ -816,7 +859,7 @@ def alma_kernel_checks(predictor, crts, t_frames, device):
                                  device=device)
         g_em = (2.0 * (em_p - target)).contiguous()
         bwd_args = (em_p, f_p, omega, weights, biases, cfg, deg, 'float32',
-                    True)
+                    True, h_p)
         gk = fused.render_bwd(g_em, *bwd_args)
         gp = fused.render_bwd_plain(g_em, *bwd_args)
         # the backward must take nothing from padding columns, whatever
@@ -848,7 +891,8 @@ def alma_kernel_checks(predictor, crts, t_frames, device):
             bwd_plain=cuda_ms(lambda: fused.render_bwd_plain(g_em,
                                                              *bwd_args)))
         fwd_b = bound('fwd', cfg, feat, BATCH, n, n_params, 'float32')
-        bwd_b = bound('bwd', cfg, feat, BATCH, n, n_params, 'float32', True)
+        bwd_b = bound('bwd', cfg, feat, BATCH, n, n_params, 'float32', True,
+                      stash=True)
         log(f'ALMA {layout} N = {n} ({int(filler.sum())} padding columns, '
             f'exact zeros, no leak): fwd max|em_kernel - em_plain| = '
             f'{fwd_err:.3e} (atol 2e-6, rtol 1e-4), features {f_err:.3e}; '
@@ -1209,6 +1253,7 @@ def recovery_kernel_checks(predictor, crt, t_frames, device,
     2% and every gradient matrix at a cosine above 0.99."""
     import torch
     from bhnerf_tpu_torch.ops import fused
+    from bhnerf_tpu_torch.tools.time_kernels import stash_agrees
 
     n = crt.coords.shape[1]
     common = kernel_inputs(predictor, crt, t_frames, np.random.default_rng(4),
@@ -1217,7 +1262,7 @@ def recovery_kernel_checks(predictor, crt, t_frames, device,
     n_params = sum(w.numel() + b.numel() for w, b in zip(weights, biases))
     target = torch.as_tensor(np.random.default_rng(5).random((batch, n)),
                              dtype=torch.float32, device=device)
-    em32, f32 = fused.render_fwd_plain(*common, 'float32', stash=True)
+    em32, f32, _ = fused.render_fwd_plain(*common, 'float32', stash=True)
     g32 = (2.0 * (em32 - target)).contiguous()
     gp32 = fused.render_bwd_plain(g32, em32, f32, omega, weights, biases,
                                   cfg, deg, 'float32', want_dt)
@@ -1226,27 +1271,35 @@ def recovery_kernel_checks(predictor, crt, t_frames, device,
     out = {}
     for dtype in dtypes:
         em_tol, f_tol, g_tol = tols[dtype]
-        em_k, f_k = fused.render_fwd(*common, dtype, stash=True)
-        em_p, f_p = fused.render_fwd_plain(*common, dtype, stash=True)
+        em_k, f_k, h_k = fused.render_fwd(*common, dtype, stash=True)
+        em_p, f_p, h_p = fused.render_fwd_plain(*common, dtype, stash=True)
         g_em = (2.0 * (em_p - target)).contiguous()
+        # the backward as training runs it: from the stash where the
+        # forward kept one
         bwd_args = (em_p, f_p, omega, weights, biases, cfg, deg, dtype,
-                    want_dt)
+                    want_dt, None if h_k is None else h_p)
         gk = fused.render_bwd(g_em, *bwd_args)
         gp = fused.render_bwd_plain(g_em, *bwd_args)
         torch.cuda.synchronize()
         fwd_err = float((em_k - em_p).abs().max())
         f_err = float((f_k - f_p).abs().max())
+        h_agree = None if h_k is None else stash_agrees(h_k, h_p, dtype)
         bwd_err, norm_err = grad_errors(gp, gk)
         dt_rel = float(((gk[2] - gp[2]).abs() / (gp[2].abs() + 1e-12))
                        .max()) if want_dt else 0.0
         line = (f'{label} N = {n}, {batch} frames, {dtype}: emission '
                 f'{fwd_err:.3e} (atol '
                 f'{em_tol["atol"]:g}, rtol {em_tol["rtol"]:g}), F '
-                f'{f_err:.3e} (atol {f_tol:.3g}), gradients '
+                f'{f_err:.3e} (atol {f_tol:.3g}), activations '
+                + ('not stashed' if h_agree is None else
+                   f'{h_agree[0]:.3e} ({h_agree[1]:.2e} of them off the '
+                   f'emission\'s tolerance)')
+                + f', gradients '
                 f'{norm_err:.3e} normalised (atol {g_tol:.0e})'
                 + (f', d_t rel err {dt_rel:.3e} (rtol 2e-3)' if want_dt
                    else ''))
         if not torch.allclose(em_k, em_p, **em_tol) or f_err > f_tol \
+                or (h_k is not None and not h_agree[2]) \
                 or norm_err > g_tol or dt_rel > 2e-3:
             raise RuntimeError(f'kernels disagree with their plain versions: '
                                f'{line}')
@@ -1271,7 +1324,8 @@ def recovery_kernel_checks(predictor, crt, t_frames, device,
                  lambda: fused.render_bwd_plain(g_em, *bwd_args))):
             ms, plain_ms = cuda_ms(run), cuda_ms(plain)
             b_ms, b_by, _ = bound(kind, cfg, f_p.shape[0], batch, n,
-                                  n_params, dtype, want_dt)
+                                  n_params, dtype, want_dt,
+                                  stash=h_k is not None)
             out[dtype][kind] = {'max_abs_err': err, 'ms': ms,
                                 'plain_ms': plain_ms, 'bound_ms': b_ms,
                                 'bound_by': b_by}

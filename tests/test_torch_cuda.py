@@ -13,10 +13,11 @@ import numpy as np
 import pytest
 import torch
 
-from bhnerf_tpu_torch import emission, units
+from bhnerf_tpu_torch import emission, tracing, units
 from bhnerf_tpu_torch.geodesics import image_plane_geos
 from bhnerf_tpu_torch.models.fields import NeRFPredictor
 from bhnerf_tpu_torch.ops import fused
+from bhnerf_tpu_torch.tools.time_kernels import stash_agrees
 from bhnerf_tpu_torch.train import step
 
 
@@ -65,8 +66,8 @@ def test_kernels_match_plain_on_card(cuda_device, compute_dtype, width,
     cfg = (depth, width, True)
     args = (t_eff, coords, omega, tg, smask, weights, biases, cfg, 8.0, deg,
             compute_dtype)
-    em_k, f_k = fused.render_fwd(*args, stash=True)
-    em_p, f_p = fused.render_fwd_plain(*args, stash=True)
+    em_k, f_k, _ = fused.render_fwd(*args, stash=True)
+    em_p, f_p, _ = fused.render_fwd_plain(*args, stash=True)
     torch.cuda.synchronize()
     tol = dict(atol=2e-6, rtol=1e-4) if compute_dtype == 'float32' \
         else dict(atol=2e-3, rtol=2e-2)
@@ -140,8 +141,8 @@ def test_forward_matches_plain_on_card(cuda_device, compute_dtype, width,
     torch.backends.cuda.matmul.allow_tf32 = False
     args = _forward_inputs(cuda_device, np.random.default_rng(1), width,
                            depth, nt, n, compute_dtype)
-    em_k, f_k = fused.render_fwd(*args, stash=True)
-    em_p, f_p = fused.render_fwd_plain(*args, stash=True)
+    em_k, f_k, _ = fused.render_fwd(*args, stash=True)
+    em_p, f_p, _ = fused.render_fwd_plain(*args, stash=True)
     torch.cuda.synchronize()
     assert float(em_p.max()) > 0.05
     tol, f_tol = (dict(atol=2e-6, rtol=1e-4), 1e-5) \
@@ -184,7 +185,7 @@ def test_forward_many_feature_rows_on_card(cuda_device):
     torch.backends.cuda.matmul.allow_tf32 = False
     args = _forward_inputs(cuda_device, np.random.default_rng(3), 128, 4, 3,
                            320, 'float32', deg=8)
-    em_k, f_k = fused.render_fwd(*args, stash=True)
+    em_k, f_k, _ = fused.render_fwd(*args, stash=True)
     torch.cuda.synchronize()
     t_eff, coords, omega, tg, smask, weights, biases, cfg, scale, deg, _ = args
     f_p, mask = fused._prologue_plain(t_eff, coords, omega, tg, smask, scale,
@@ -200,6 +201,180 @@ def test_forward_many_feature_rows_on_card(cuda_device):
     assert float(em_p.max()) > 0.05
     np.testing.assert_allclose(em_k.cpu().numpy(), em_p.cpu().numpy(),
                                atol=2e-6, rtol=1e-4)
+
+
+def _stash_raw(args, cols_guard=4096):
+    """The forward's activation stash through a direct library call into a
+    buffer followed by `cols_guard` NaN guard floats: (H, guard)."""
+    (t_eff, coords, omega, tg, smask, weights, biases, cfg, scale, deg,
+     compute_dtype) = args
+    depth, width, do_skip = cfg
+    nt, n = t_eff.shape[0], coords.shape[1]
+    feat, bf16 = 3 * (1 + 2 * deg), compute_dtype == 'bfloat16'
+    lib = fused._lib()
+    w, b, _ = fused._pack_cuda(weights, biases, cfg, feat, bf16)
+    dev = coords.device
+    wf = torch.empty(lib.fused_render_fwd_scratch(depth, width, feat,
+                                                  int(do_skip)), device=dev)
+    em = torch.empty((nt, n), device=dev)
+    size = depth * width * nt * n
+    buf = torch.full((size + cols_guard,), float('nan'), device=dev)
+    err = lib.fused_render_fwd(
+        *(x.data_ptr() for x in (t_eff, coords, omega, tg, smask, w, b, wf,
+                                 em)), None, buf.data_ptr(), nt, n, depth,
+        width, feat, int(do_skip), deg, float(np.float32(1.0 / scale)),
+        int(bf16), torch.cuda.current_stream(dev).cuda_stream)
+    fused._build.check(err, 'fused_render_fwd')
+    torch.cuda.synchronize()
+    return buf[:size].view(depth, width, nt * n), buf[size:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('compute_dtype,width,depth,nt,n', [
+    # a short last tile in one frame and across frames
+    ('float32', 128, 4, 1, 64), ('float32', 128, 4, 3, 320),
+    ('bfloat16', 128, 4, 3, 320),
+    # widths that leave groups of warps, or half of a 32-row unit, idle;
+    # a padded width (100 -> 112)
+    ('float32', 48, 4, 3, 192), ('bfloat16', 48, 4, 3, 192),
+    ('float32', 100, 4, 3, 192),
+    # the skip input feeds the head (depth 2) or layer 5 of 8
+    ('float32', 128, 2, 3, 192), ('bfloat16', 64, 8, 3, 192),
+    # more tiles than SMs
+    ('float32', 128, 4, 6, 8192), ('bfloat16', 128, 4, 6, 8192)])
+def test_activation_stash_matches_plain_on_card(cuda_device, compute_dtype,
+                                                width, depth, nt, n):
+    """The hidden activations the forward stashes against the plain
+    forward's (`stash_agrees`: the emission's tolerance, atol 2e-6 /
+    rtol 1e-4 in f32; in bf16 its atol 2e-3 / rtol 2e-2 for all but 1e-4
+    of the values and 2e-2 of the largest for every one, as a rounding
+    boundary's step carries on through the layers); a padded width's
+    extra units are exact
+    zeros; nothing is stored past the last column (a NaN guard after the
+    buffer stays NaN, every column of the buffer is written); the stash
+    is bitwise the same on a repeated call."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _forward_inputs(cuda_device, np.random.default_rng(5), width,
+                           depth, nt, n, compute_dtype)
+    em_k, f_k, h_k = fused.render_fwd(*args, stash=True)
+    em_p, _, h_p = fused.render_fwd_plain(*args, stash=True)
+    torch.cuda.synchronize()
+    padded = -(-width // 16) * 16
+    assert h_k.shape == (depth, padded, nt * n)
+    assert h_p.shape == (depth, width, nt * n)
+    err, share, ok = stash_agrees(h_k[:, :width], h_p, compute_dtype)
+    assert ok, f'activation stash off the plain forward\'s by {err} ' \
+        f'({share} of the values off the emission\'s tolerance)'
+    assert not bool(h_k[:, width:].any())
+    assert float(h_p.max()) > 0.1
+    again = fused.render_fwd(*args, stash=True)
+    assert torch.equal(again[2], h_k) and torch.equal(again[0], em_k)
+    w_p, b_p, cfg_p = fused._pad_width(*args[5:8])
+    raw, guard = _stash_raw((*args[:5], w_p, b_p, cfg_p, *args[8:]))
+    assert bool(torch.isnan(guard).all())
+    assert torch.equal(raw, h_k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('compute_dtype,width,depth,nt,n_tiles', [
+    ('float32', 128, 4, 3, 4), ('bfloat16', 128, 4, 3, 4),
+    ('float32', 16, 4, 3, 4), ('float32', 128, 2, 3, 4),
+    ('float32', 64, 8, 3, 4), ('bfloat16', 64, 8, 3, 4),
+    ('float32', 48, 4, 3, 4), ('float32', 100, 4, 3, 4),
+    ('float32', 128, 4, 1, 1), ('float32', 128, 4, 6, 128)])
+def test_stash_and_recompute_paths_agree_on_card(cuda_device, monkeypatch,
+                                                 compute_dtype, width,
+                                                 depth, nt, n_tiles):
+    """The backward from the forward's activation stash against the
+    backward that recomputes them (the stash's budget patched to 0, as
+    for a shape over it), on the same inputs: gradients atol 5e-5
+    normalised (1e-2 in bf16), d_t rtol 2e-3; the stash path also against
+    the plain version given the same stash; each path bitwise repeatable;
+    each launch counted once under its path in tracing.counters."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(6)
+    args = _forward_inputs(cuda_device, rng, width, depth, nt,
+                           n_tiles * fused.TILE_N, compute_dtype)
+    omega, weights, biases, cfg, deg = (args[2], args[5], args[6], args[7],
+                                        args[9])
+    em, f_store, h_store = fused.render_fwd(*args, stash=True)
+    monkeypatch.setattr(fused, 'ACT_STASH_SHARE', 0.0)
+    em_r, f_r, h_none = fused.render_fwd(*args, stash=True)
+    monkeypatch.undo()
+    assert h_store is not None and h_none is None
+    assert torch.equal(em, em_r) and torch.equal(f_store, f_r)
+    g = torch.as_tensor(rng.standard_normal(em.shape), dtype=torch.float32,
+                        device=cuda_device)
+    gtol = 5e-5 if compute_dtype == 'float32' else 1e-2
+    counts = lambda: [tracing.counters.counts.get(f'render_bwd.{k}', 0)
+                      for k in ('from_stash', 'recomputed')]
+    for want_dt in (False, True):
+        bwd = (g, em, f_store, omega, weights, biases, cfg, deg,
+               compute_dtype, want_dt)
+        before = counts()
+        gs = fused.render_bwd(*bwd, h_store)
+        gr = fused.render_bwd(*bwd)
+        gs2 = fused.render_bwd(*bwd, h_store)
+        gr2 = fused.render_bwd(*bwd)
+        gp = fused.render_bwd_plain(*bwd, h_store)
+        torch.cuda.synchronize()
+        assert [a - b for a, b in zip(counts(), before)] == [2, 2]
+        for a, b, c in zip(gr[0] + gr[1], gs[0] + gs[1], gp[0] + gp[1]):
+            a, b, c = a.cpu().numpy(), b.cpu().numpy(), c.cpu().numpy()
+            scale = np.abs(c).max() + 1e-8
+            np.testing.assert_allclose(b / scale, a / scale, atol=gtol)
+            np.testing.assert_allclose(b / scale, c / scale, atol=gtol)
+        if want_dt and compute_dtype == 'float32':
+            np.testing.assert_allclose(gs[2].cpu().numpy(),
+                                       gr[2].cpu().numpy(), rtol=2e-3,
+                                       atol=1e-6)
+            np.testing.assert_allclose(gs[2].cpu().numpy(),
+                                       gp[2].cpu().numpy(), rtol=2e-3,
+                                       atol=1e-6)
+        for x, y in ((gs, gs2), (gr, gr2)):
+            assert all(torch.equal(a, b) for a, b in
+                       zip(x[0] + x[1] + [x[2]], y[0] + y[1] + [y[2]]))
+
+
+@pytest.mark.cuda
+def test_training_step_reads_the_stash_at_t3_shape_on_card(cuda_device,
+                                                           monkeypatch):
+    """At the Tutorial-3 step's shape (N 68,352, 6 frames, 4x128) one
+    gradient step through fused_render launches one forward and one
+    backward, and the backward reads the activation stash:
+    `render_bwd.from_stash` +1, `.recomputed` +0. With the stash's budget
+    at 0 the same step recomputes (+0, +1) and gives the same gradients
+    (atol 5e-5 normalised)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(7)
+    nt, n = 6, 68_352
+    args = _forward_inputs(cuda_device, rng, 128, 4, nt, n, 'float32')
+    t_eff, coords, omega, tg, smask = args[:5]
+    pred = NeRFPredictor(scale=8.0, net_depth=4, net_width=128)
+    g = torch.as_tensor(rng.standard_normal((nt, n)), dtype=torch.float32,
+                        device=cuda_device)
+    counts = lambda: [tracing.counters.counts.get(f'render_bwd.{k}', 0)
+                      for k in ('from_stash', 'recomputed')]
+    grads = []
+    for share, want in ((fused.ACT_STASH_SHARE, [1, 0]), (0.0, [0, 1])):
+        monkeypatch.setattr(fused, 'ACT_STASH_SHARE', share)
+        params = pred.init_params(generator=torch.Generator().manual_seed(0),
+                                  device=cuda_device)
+        with torch.no_grad():
+            params.mlp.layers[-1].bias += 8.0
+        before = counts()
+        launches = (fused.render_fwd.launches, fused.render_bwd.launches)
+        em = fused.fused_render(params, coords, omega, tg, smask, t_eff,
+                                (4, 128, True), 8.0, 3)
+        (em * g).sum().backward()
+        torch.cuda.synchronize()
+        assert [a - b for a, b in zip(counts(), before)] == want
+        assert (fused.render_fwd.launches - launches[0],
+                fused.render_bwd.launches - launches[1]) == (1, 1)
+        grads.append([p.grad.cpu().numpy() for p in params.parameters()])
+    for a, b in zip(grads[1], grads[0]):
+        scale = np.abs(a).max() + 1e-8
+        np.testing.assert_allclose(b / scale, a / scale, atol=5e-5)
 
 
 def _native_args(device, seed=0):
@@ -248,8 +423,8 @@ def test_native_layout_filler_is_inert_on_card(cuda_device, compute_dtype):
     cfg = (pred.net_depth, pred.net_width, pred.do_skip)
     args = (t_eff, coords, omega, tg, smask, weights, biases, cfg,
             pred.scale, pred.posenc_deg, compute_dtype)
-    em_k, f_k = fused.render_fwd(*args, stash=True)
-    em_p, f_p = fused.render_fwd_plain(*args, stash=True)
+    em_k, f_k, _ = fused.render_fwd(*args, stash=True)
+    em_p, f_p, _ = fused.render_fwd_plain(*args, stash=True)
     torch.cuda.synchronize()
     f32 = compute_dtype == 'float32'
     tol = dict(atol=2e-6, rtol=1e-4) if f32 else dict(atol=2e-3, rtol=2e-2)
@@ -331,8 +506,8 @@ def test_padded_widths_match_plain_on_card(cuda_device, width, depth):
                            'float32')
     _, _, omega, _, _, weights, biases, cfg, _, deg, _ = args
     launches = (fused.render_fwd.launches, fused.render_bwd.launches)
-    em_k, f_k = fused.render_fwd(*args, stash=True)
-    em_p, f_p = fused.render_fwd_plain(*args, stash=True)
+    em_k, f_k, _ = fused.render_fwd(*args, stash=True)
+    em_p, f_p, _ = fused.render_fwd_plain(*args, stash=True)
     g = torch.as_tensor(rng.standard_normal(em_p.shape), dtype=torch.float32,
                         device=cuda_device)
     gk = fused.render_bwd(g, em_p, f_p, omega, weights, biases, cfg, deg,
@@ -391,9 +566,9 @@ class _PlainRender(torch.autograd.Function):
     def forward(ctx, t_eff, coords, omega, tg, smask, cfg, deg, *tensors):
         n_layers = cfg[0] + 1
         weights, biases = tensors[:n_layers], tensors[n_layers:]
-        em, f_store = fused.render_fwd_plain(t_eff, coords, omega, tg, smask,
-                                             weights, biases, cfg, 8.0, deg,
-                                             stash=True)
+        em, f_store, _ = fused.render_fwd_plain(t_eff, coords, omega, tg,
+                                                smask, weights, biases, cfg,
+                                                8.0, deg, stash=True)
         ctx.cfg, ctx.deg = cfg, deg
         ctx.save_for_backward(em, f_store, omega, *tensors)
         return em
@@ -418,7 +593,7 @@ def test_width_over_128_raises_on_card(cuda_device):
     launches = (fused.render_fwd.launches, fused.render_bwd.launches)
     with pytest.raises(ValueError, match='net_width up to 128'):
         fused.render_fwd(*args)
-    em, f = fused.render_fwd_plain(*args, stash=True)
+    em, f, _ = fused.render_fwd_plain(*args, stash=True)
     with pytest.raises(ValueError, match='net_width up to 128'):
         fused.render_bwd(em, em, f, args[2], args[5], args[6], args[7], 3)
     assert (fused.render_fwd.launches, fused.render_bwd.launches) == launches

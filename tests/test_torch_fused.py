@@ -286,3 +286,120 @@ def test_forward_argtypes_match_source():
                            'float': ctypes.c_float}[param.split()[0]])
     assert kinds == fused.FWD_ARGTYPES
     assert 'float* wf' in proto
+
+
+def test_backward_argtypes_match_source():
+    """The ctypes signature the wrapper gives `fused_render_bwd` stays in
+    step with its C prototype in fused_render.cu, the activation stash
+    after the features."""
+    import ctypes
+    src = (Path(fused.__file__).parent / 'csrc' / 'fused_render.cu') \
+        .read_text()
+    proto = re.search(r'int fused_render_bwd\((.*?)\)\s*{', src, re.S).group(1)
+    kinds = [ctypes.c_void_p if '*' in p else ctypes.c_int
+             for p in (' '.join(q.split()) for q in proto.split(','))]
+    assert kinds == fused.BWD_ARGTYPES
+    assert [' '.join(q.split()) for q in proto.split(',')][2:4] == \
+        ['const float* fstash', 'const float* h_store']
+
+
+def _plain_inputs(depth, width, do_skip, compute_dtype, nt=3, seed=0):
+    rng = np.random.default_rng(seed)
+    n = 2 * fused.TILE_N
+    pred = NeRFPredictor(scale=8.0, net_depth=depth, net_width=width,
+                         do_skip=do_skip, compute_dtype=compute_dtype)
+    params = pred.init_params(generator=torch.Generator().manual_seed(seed),
+                              device='cpu')
+    weights = [w.detach() for w in fused.pack_params(params)[0]]
+    biases = [b.detach() + 0.3 for b in fused.pack_params(params)[1]]
+    biases[-1] = biases[-1] + 8.0
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32))
+    common = (f32(rng.uniform(0, 50, (nt, 1))),
+              f32(rng.uniform(-8, 8, (3, n))),
+              f32(rng.uniform(0.01, 0.1, (1, n))),
+              f32(rng.uniform(-30, 30, (1, n))),
+              f32(rng.random((1, n)) > 0.2))
+    g = f32(rng.standard_normal((nt, n)))
+    return common, weights, biases, (depth, width, do_skip), g
+
+
+@pytest.mark.parametrize('compute_dtype,depth,width,do_skip,want_dt', [
+    ('float32', 4, 32, True, False), ('float32', 4, 32, True, True),
+    ('bfloat16', 4, 32, True, True), ('float32', 2, 16, False, True),
+    ('float32', 8, 48, True, True)])
+def test_plain_backward_from_stash_matches_recompute(compute_dtype, depth,
+                                                     width, do_skip,
+                                                     want_dt):
+    """render_bwd_plain gives bitwise the same gradients and d_t from the
+    activations render_fwd_plain stashes (H (depth, width, nt * N), each
+    layer's output after bias, ReLU and rounding) as from its own
+    recompute, and from an H padded with zero rows past the width."""
+    common, weights, biases, cfg, g = _plain_inputs(depth, width, do_skip,
+                                                    compute_dtype)
+    em, F, H = fused.render_fwd_plain(*common, weights, biases, cfg, 8.0, 3,
+                                      compute_dtype, stash=True)
+    assert H.shape == (depth, width, F.shape[1])
+    acts, _ = fused._forward_chain_plain(F, weights, biases, cfg,
+                                         compute_dtype == 'bfloat16')
+    for h, a in zip(H, acts):
+        assert torch.equal(h, a[:width])
+    bwd = (g, em, F, common[2], weights, biases, cfg, 3, compute_dtype,
+           want_dt)
+    ref = fused.render_bwd_plain(*bwd)
+    padded = torch.nn.functional.pad(H, (0, 0, 0, 16))
+    for stash in (H, padded):
+        got = fused.render_bwd_plain(*bwd, stash)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(ref[0] + ref[1] + [ref[2]], got[0] + got[1] + [got[2]]))
+
+
+def test_fused_step_runs_the_mlp_forward_once(monkeypatch):
+    """Through the autograd Function a gradient step evaluates the MLP's
+    hidden layers once: the backward takes the activations the forward
+    stashed. Its gradients equal those of the backward that recomputes
+    them (bitwise on the CPU)."""
+    common, weights, biases, cfg, g = _plain_inputs(4, 32, True, 'float32')
+    t_eff, coords, omega, tg, smask = common
+    pred = NeRFPredictor(scale=8.0, net_depth=4, net_width=32)
+    chain = fused._forward_chain_plain
+    calls = []
+    monkeypatch.setattr(fused, '_forward_chain_plain',
+                        lambda *a: calls.append(1) or chain(*a))
+    grads = []
+    for stash in (True, False):
+        params = pred.init_params(generator=torch.Generator().manual_seed(0),
+                                  device='cpu')
+        if not stash:     # a forward that kept no activations
+            fwd = fused.render_fwd
+            monkeypatch.setattr(
+                fused, 'render_fwd',
+                lambda *a, **k: (fwd(*a, **k)[:2] + (None,))
+                if k.get('stash') else fwd(*a, **k))
+        calls.clear()
+        em = fused.fused_render(params, coords, omega, tg, smask, t_eff, cfg,
+                                8.0, 3)
+        (em * g).sum().backward()
+        assert len(calls) == (1 if stash else 2)
+        grads.append([p.grad for p in params.parameters()])
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+# an 80 GB card; the stash's budget is an eighth of it, 10 GB
+CARD_BYTES = 80 * 10 ** 9
+
+
+@pytest.mark.parametrize('name,nt,n,fits', [
+    ('tutorial-3 step', 6, 68_352, True),           # 0.84 GB
+    ('ALMA gather', 6, 47_488, True),               # 0.58 GB
+    ('bench ALMA shape', 6, 277_632, True),         # 3.4 GB
+    ('EHT npix 128', 6, 422_080, True),             # 5.2 GB
+    ('EHT npix 128, 12 frames', 12, 422_080, False),   # 10.4 GB
+    ('EHT npix 128, 64 frames', 64, 422_080, False)])  # 55 GB
+def test_activation_stash_budget(name, nt, n, fits):
+    """The wrapper stashes the 4x128 MLP's hidden activations (4 B x 4 x
+    128 a column) while they fit an eighth of the card's total memory,
+    and recomputes them above it: every training shape of the port takes
+    the stash on an 80 GB card; the shape alone decides."""
+    assert fused.ACT_STASH_SHARE == 1 / 8
+    assert fused.act_stash_fits(4, 128, nt * n, CARD_BYTES) == fits
+    assert fused.act_stash_fits(4, 128, nt * n, 8 * CARD_BYTES)

@@ -514,13 +514,18 @@ def test_width_padding_is_exact(width, depth):
     assert cfg_p == (depth, -(-width // 16) * 16, True)
     if width % 16 == 0:
         assert w_p is weights and b_p is biases
-    em, F = fused.render_fwd_plain(*common, weights, biases, cfg, 8.0, 3,
-                                   stash=True)
-    em_p, F_p = fused.render_fwd_plain(*common, w_p, b_p, cfg_p, 8.0, 3,
-                                       stash=True)
+    em, F, H = fused.render_fwd_plain(*common, weights, biases, cfg, 8.0, 3,
+                                      stash=True)
+    em_p, F_p, H_p = fused.render_fwd_plain(*common, w_p, b_p, cfg_p, 8.0,
+                                            3, stash=True)
     np.testing.assert_allclose(em_p.numpy(), em.numpy(), rtol=1e-6,
                                atol=1e-9)
     np.testing.assert_array_equal(F_p.numpy(), F.numpy())
+    # the padded units' activations are ReLU(0) = 0
+    assert H_p.shape == (depth, cfg_p[1], nt * n)
+    assert not H_p[:, width:].any()
+    np.testing.assert_allclose(H_p[:, :width].numpy(), H.numpy(), rtol=1e-6,
+                               atol=1e-9)
     g = f32(rng.standard_normal((nt, n)))
     ref = fused.render_bwd_plain(g, em, F, common[2], weights, biases, cfg,
                                  3, want_dt=True)
